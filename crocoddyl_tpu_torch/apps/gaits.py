@@ -1,0 +1,228 @@
+"""Quadruped walking problem factory (port of
+``QuadrupedGaitFactory.walking_problem`` and the ``_LocomotionFactory``
+helpers it calls, crocoddyl_tpu/apps/gaits.py).
+
+Every knot shares ONE structure — a RigidBodyNode with the full maximal
+contact set and cost stack — and per-knot differences (contact activity,
+task references, weights, dt) are tensor leaves; ``stack_models`` stacks
+the knots into one segment.  Foot switches are pseudo-impulse knots (dt=0,
+boosted weights), so the walk is a single segment.  Everything is built in
+float64 on the host; ``tree_map`` moves the problem to a device or dtype.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ..core.action import stack_models
+from ..core.problem import ShootingProblem
+from ..dynamics import algorithms as algo
+from ..dynamics.model import RobotModel
+from ..dynamics.states import StateMultibody
+from ..models.multibody.activations import (
+    ActivationQuad, ActivationQuadraticBarrier, ActivationWeightedQuad)
+from ..models.multibody.actuations import FloatingBaseActuation
+from ..models.multibody.contacts import Contact3D, ContactSet
+from ..models.multibody.costs import (
+    CostCoM, CostContactFrictionCone, CostControl, CostFrameTranslation,
+    CostFrameVelocity, CostState)
+from ..models.multibody.frames import friction_cone
+from ..models.multibody.nodes import CostStack, RigidBodyNode
+
+
+def _t(a) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float64))
+
+
+def _fk_positions(model: RobotModel, q, fids):
+    """World positions of frames (numpy out)."""
+    oMi, _ = algo.forward_kinematics(model, torch.as_tensor(q))
+    return [algo.frame_placement(model, oMi, f).p.numpy().copy()
+            for f in fids]
+
+
+class _LocomotionFactory:
+    contact_gains = (0.0, 50.0)
+    w_com = 1e6
+    w_foot_track = 1e6
+    w_foot_track_switch = 1e7
+    w_impulse_vel = 1e6
+    w_friction = 1e1
+    w_state_reg = 1e1
+    w_ctrl = 1e-1
+    w_ctrl_switch = 1e-3
+    w_state_bounds = 0.0
+
+    def __init__(self, model: RobotModel, foot_names: Sequence[str],
+                 mu: float = 0.7, default_q=None):
+        self.model = model
+        self.state = StateMultibody(model=model)
+        self.feet = [model.frame_id(n) for n in foot_names]
+        self.nfeet = len(self.feet)
+        self.mu = mu
+        self.cone = friction_cone((0., 0., 1.), mu, nf=4, inner_appr=False)
+        nv = model.nv
+        q0 = np.asarray(default_q if default_q is not None
+                        else model.neutral())
+        self.default_state = np.concatenate([q0, np.zeros(nv)])
+        self.first_step = True
+        self._default_foot_pos = _fk_positions(model, q0, self.feet)
+
+    def _state_weights_running(self):
+        nv = self.model.nv
+        return np.array([0.] * 3 + [500.] * 3 + [0.01] * (nv - 6)
+                        + [10.] * 6 + [1.] * (nv - 6))
+
+    def _state_weights_switch(self):
+        nv = self.model.nv
+        return np.array([0.] * 3 + [500.] * 3 + [0.01] * (nv - 6)
+                        + [10.] * nv)
+
+    def _state_bounds(self):
+        m = self.model
+        inf = np.inf
+        q_lb = np.concatenate([[-inf] * 6, m.q_lb.numpy()[7:]])
+        q_ub = np.concatenate([[inf] * 6, m.q_ub.numpy()[7:]])
+        v_l = m.v_limit.numpy()
+        return (np.concatenate([q_lb, -v_l]), np.concatenate([q_ub, v_l]))
+
+    def _make_node(self, dt, support, com_task=None, foot_tasks=None,
+                   switch=False):
+        """One knot (quadruped.py createSwingFootModel /
+        createPseudoImpulseModel)."""
+        foot_tasks = foot_tasks or {}
+        support = set(support)
+        nu = self.model.nv - 6
+        contacts, cone_costs, track_costs, vel_costs = [], [], [], []
+        for i, fid in enumerate(self.feet):
+            on = 1.0 if i in support else 0.0
+            contacts.append(Contact3D(fid=fid, pref=_t(np.zeros(3)),
+                                      gains=_t(self.contact_gains),
+                                      active=_t(on)))
+            cone_costs.append(CostContactFrictionCone(
+                contact_idx=i, cone=self.cone,
+                activation=ActivationQuadraticBarrier(lb=self.cone.lb,
+                                                      ub=self.cone.ub),
+                weight=_t(self.w_friction), active=_t(on)))
+            tracked = i in foot_tasks
+            w_track = self.w_foot_track_switch if switch else self.w_foot_track
+            track_costs.append(CostFrameTranslation(
+                fid=fid, pref=_t(foot_tasks.get(i, np.zeros(3))),
+                activation=ActivationQuad(), weight=_t(w_track),
+                active=_t(1.0 if tracked else 0.0)))
+            vel_costs.append(CostFrameVelocity(
+                fid=fid, vref=_t(np.zeros(6)), activation=ActivationQuad(),
+                weight=_t(self.w_impulse_vel),
+                active=_t(1.0 if (switch and tracked) else 0.0)))
+
+        sw = (self._state_weights_switch() if switch
+              else self._state_weights_running())
+        items = [
+            CostCoM(cref=_t(com_task if com_task is not None else np.zeros(3)),
+                    activation=ActivationQuad(), weight=_t(self.w_com),
+                    active=_t(1.0 if com_task is not None else 0.0)),
+            *track_costs, *vel_costs, *cone_costs,
+            CostState(xref=_t(self.default_state),
+                      activation=ActivationWeightedQuad(weights=_t(sw ** 2)),
+                      weight=_t(self.w_state_reg), active=_t(1.0)),
+            CostControl(uref=_t(np.zeros(nu)), activation=ActivationQuad(),
+                        weight=_t(self.w_ctrl_switch if switch
+                                  else self.w_ctrl),
+                        active=_t(1.0)),
+        ]
+        if self.w_state_bounds > 0.0:
+            lb, ub = self._state_bounds()
+            items.append(CostState(
+                xref=_t(np.concatenate([self.model.neutral().numpy(),
+                                        np.zeros(self.model.nv)])),
+                activation=ActivationQuadraticBarrier(lb=_t(lb), ub=_t(ub)),
+                weight=_t(self.w_state_bounds), active=_t(1.0)))
+        return RigidBodyNode(
+            state_=self.state,
+            actuation=FloatingBaseActuation(nv=self.model.nv),
+            costs=CostStack(items=tuple(items)),
+            contacts=ContactSet(contacts=tuple(contacts)),
+            dt=_t(float(dt)))
+
+    def _footstep_models(self, com_pos0, feet_pos0, step_length, step_height,
+                         dt, num_knots, support, swing) -> List:
+        """Swing-phase knots + a pseudo-impulse foot switch
+        (quadruped.py createFootstepModels)."""
+        num_legs = len(support) + len(swing)
+        com_pct = float(len(swing)) / num_legs
+        models = []
+        ph_knots = num_knots / 2.0
+        last_tasks = {}
+        for k in range(num_knots):
+            tasks = {}
+            for i, p in zip(swing, feet_pos0):
+                if k < ph_knots:
+                    dp = np.array([step_length * (k + 1) / num_knots, 0.,
+                                   step_height * k / ph_knots])
+                elif k == ph_knots:
+                    dp = np.array([step_length * (k + 1) / num_knots, 0.,
+                                   step_height])
+                else:
+                    dp = np.array([step_length * (k + 1) / num_knots, 0.,
+                                   step_height
+                                   * (1 - (k - ph_knots) / ph_knots)])
+                tasks[i] = p + dp
+            com_task = (np.array([step_length * (k + 1) / num_knots, 0., 0.])
+                        * com_pct + com_pos0)
+            models.append(self._make_node(dt, support, com_task=com_task,
+                                          foot_tasks=tasks))
+            last_tasks = tasks
+        models.append(self._make_node(0.0, support, foot_tasks=last_tasks,
+                                      switch=True))
+        com_pos0 += np.array([step_length * com_pct, 0., 0.])
+        for p in feet_pos0:
+            p += np.array([step_length, 0., 0.])
+        return models
+
+    def _problem(self, x0, models) -> ShootingProblem:
+        return ShootingProblem(x0=torch.as_tensor(x0),
+                               running=stack_models(models),
+                               terminal=models[-1])
+
+    def _com_ref(self, q0):
+        pos = _fk_positions(self.model, q0, self.feet)
+        com_ref = np.mean(pos, axis=0)
+        com_ref[2] = float(algo.center_of_mass(self.model,
+                                               torch.as_tensor(q0))[2])
+        return com_ref, pos
+
+
+class QuadrupedGaitFactory(_LocomotionFactory):
+    """Feet order must be (LF, RF, LH, RH)."""
+
+    contact_gains = (0.0, 50.0)
+    w_state_bounds = 1e3
+
+    def walking_problem(self, x0, step_length, step_height, dt,
+                        step_knots, support_knots) -> ShootingProblem:
+        """One walking cycle: 2×[double support + 2 footsteps]; footfall
+        order RH, RF, LH, LF."""
+        x0 = np.asarray(x0)
+        com_ref, (lf, rf, lh, rh) = self._com_ref(x0[:self.model.nq])
+        LF, RF, LH, RH = 0, 1, 2, 3
+        first = 0.5 if self.first_step else 1.0
+        self.first_step = False
+        allfeet = range(self.nfeet)
+        models = [self._make_node(dt, allfeet) for _ in range(support_knots)]
+        models += self._footstep_models(com_ref, [rh], first * step_length,
+                                        step_height, dt, step_knots,
+                                        [LF, RF, LH], [RH])
+        models += self._footstep_models(com_ref, [rf], first * step_length,
+                                        step_height, dt, step_knots,
+                                        [LF, LH, RH], [RF])
+        models += [self._make_node(dt, allfeet) for _ in range(support_knots)]
+        models += self._footstep_models(com_ref, [lh], step_length,
+                                        step_height, dt, step_knots,
+                                        [LF, RF, RH], [LH])
+        models += self._footstep_models(com_ref, [lf], step_length,
+                                        step_height, dt, step_knots,
+                                        [RF, LH, RH], [LF])
+        return self._problem(x0, models)

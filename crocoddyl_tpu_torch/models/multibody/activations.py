@@ -1,0 +1,61 @@
+"""Activation models r ↦ (a, Ar, Arr_diag) (port of the four activations of
+crocoddyl_tpu/models/multibody/activations.py that the node kernel
+admits)."""
+
+from __future__ import annotations
+
+import torch
+
+from ...utils.struct import PyTreeNode
+
+
+class Activation(PyTreeNode):
+    def calc(self, r):
+        """Return (a_value, Ar, Arr_diag) for a residual r (..., nr)."""
+        raise NotImplementedError
+
+
+class ActivationQuad(Activation):
+    """a = ½‖r‖²."""
+
+    def calc(self, r):
+        return 0.5 * (r * r).sum(-1), r, torch.ones_like(r)
+
+
+class ActivationWeightedQuad(Activation):
+    """a = ½ rᵀW r, W diagonal."""
+
+    weights: torch.Tensor
+
+    def calc(self, r):
+        wr = self.weights * r
+        return 0.5 * (r * wr).sum(-1), wr, self.weights.expand_as(r)
+
+
+class ActivationQuadraticBarrier(Activation):
+    """a = ½‖(r−ub)⁺‖² + ½‖(r−lb)⁻‖²."""
+
+    lb: torch.Tensor
+    ub: torch.Tensor
+
+    def calc(self, r):
+        rlb = torch.clamp(r - self.lb, max=0.0)
+        rub = torch.clamp(r - self.ub, min=0.0)
+        a = 0.5 * (rlb * rlb).sum(-1) + 0.5 * (rub * rub).sum(-1)
+        active = ((r - self.lb) <= 0.0) | ((r - self.ub) >= 0.0)
+        return a, rlb + rub, active.to(r.dtype)
+
+
+class ActivationWeightedQuadraticBarrier(Activation):
+    """Barrier with per-component weights."""
+
+    lb: torch.Tensor
+    ub: torch.Tensor
+    weights: torch.Tensor
+
+    def calc(self, r):
+        rb = (torch.clamp(r - self.lb, max=0.0)
+              + torch.clamp(r - self.ub, min=0.0))
+        wrb = self.weights * rb
+        active = ((r - self.lb) <= 0.0) | ((r - self.ub) >= 0.0)
+        return 0.5 * (rb * wrb).sum(-1), wrb, self.weights * active.to(r.dtype)

@@ -1,0 +1,55 @@
+"""Actuation models u ↦ τ(x, u) (port of the two actuations of
+crocoddyl_tpu/models/multibody/actuations.py that the node kernel admits).
+Both are constant linear maps, so dτ/dx = 0 and dτ/du is ``dtau_du``."""
+
+from __future__ import annotations
+
+import torch
+
+from ...utils.struct import PyTreeNode, field
+
+
+class Actuation(PyTreeNode):
+    nv: int = field(static=True)
+
+    @property
+    def nu(self) -> int:
+        raise NotImplementedError
+
+    def calc(self, x, u):
+        raise NotImplementedError
+
+    def dtau_du(self, like) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class FullActuation(Actuation):
+    """τ = u."""
+
+    @property
+    def nu(self) -> int:
+        return self.nv
+
+    def calc(self, x, u):
+        return u
+
+    def dtau_du(self, like):
+        return torch.eye(self.nv, dtype=like.dtype, device=like.device)
+
+
+class FloatingBaseActuation(Actuation):
+    """τ = [0₆; u] — underactuated free-flyer base."""
+
+    @property
+    def nu(self) -> int:
+        return self.nv - 6
+
+    def calc(self, x, u):
+        return torch.cat([torch.zeros(u.shape[:-1] + (6,), dtype=u.dtype,
+                                      device=u.device), u], dim=-1)
+
+    def dtau_du(self, like):
+        """The constant [0; I] map (the JAX node takes it by jacfwd)."""
+        return torch.cat([
+            torch.zeros((6, self.nu), dtype=like.dtype, device=like.device),
+            torch.eye(self.nu, dtype=like.dtype, device=like.device)])

@@ -1,0 +1,404 @@
+"""Build, bind and launch the three CUDA kernels of the main path.
+
+``csrc/*.cu`` are compiled at first use with ``nvcc -gencode
+arch=compute_90a,code=sm_90a`` into one shared library with a plain C
+interface (``crocoddyl_tpu_torch/build/kernels/``), loaded with ctypes.
+Nothing here touches nvcc or the library at import time.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs and scratch with ``torch.empty``, launches on the current CUDA
+stream, raises if the launch reports an error, and adds one to its
+``launches`` count.  The node and rollout kernels read a descriptor built
+once per stacked segment from the dataclasses (see ``descriptor``); its
+layout is mirrored in csrc/node_math.cuh.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..dynamics.algorithms import _tree_meta
+from ..dynamics.model import JointType
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib = None
+_build_log = ""
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc():
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit with sm_90a support")
+    return nvcc
+
+
+def build(verbose: bool = False) -> float:
+    """Compile (if needed) and load the kernel library; returns the seconds
+    spent.  ``verbose`` adds ``-Xptxas -v`` (registers, spills) to the
+    compile; its output is kept in :func:`build_log`."""
+    global _lib, _build_log
+    t0 = time.perf_counter()
+    with _lock:
+        if _lib is not None:
+            return 0.0
+        h = hashlib.sha256()
+        for src in _sources():
+            with open(src, "rb") as f:
+                h.update(f.read())
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        so = os.path.join(BUILD_DIR, f"libcroc_kernels_{h.hexdigest()[:16]}.so")
+        if not os.path.exists(so):
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cus = [s for s in _sources() if s.endswith(".cu")]
+            cmd = ([_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose
+                                             else []) + ["-o", tmp] + cus)
+            try:
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                _build_log = res.stdout + res.stderr
+                if res.returncode != 0:
+                    raise RuntimeError("nvcc failed:\n" + _build_log)
+                os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        lib = ctypes.CDLL(so)
+        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        for t in ("f32", "f64"):
+            fn = getattr(lib, f"croc_riccati_{t}")
+            fn.argtypes = [I, I, I, I] + [P] * 20 + [P]
+            fn.restype = I
+            fn = getattr(lib, f"croc_node_{t}")
+            fn.argtypes = [I, I] + [P] * 15 + [P]
+            fn.restype = I
+            fn = getattr(lib, f"croc_rollout_{t}")
+            fn.argtypes = [I, I] + [P] * 9 + [D] + [P] * 6 + [P]
+            fn.restype = I
+        _lib = lib
+    return time.perf_counter() - t0
+
+
+def build_log() -> str:
+    return _build_log
+
+
+def _fn(name, dtype):
+    build()
+    return getattr(_lib, f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(name, dtype, device, *args):
+    """Call C launcher ``name`` on ``device`` and its current stream (the
+    stream goes last); raise if the launch reports a CUDA error."""
+    fn = _fn(name, dtype)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _check(name, tensors, dtype, device, shapes=None, strided=()):
+    """Device, dtype, shape and contiguity of the inputs; the keys in
+    ``strided`` may be strided views (see :func:`_lane_strides`)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: float32 or float64 only, got {dtype}")
+    for key, t in tensors.items():
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, not {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} is {t.dtype}, not {dtype}")
+        if key not in strided and not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+        if shapes is not None and key in shapes and \
+                tuple(t.shape) != tuple(shapes[key]):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shapes[key])}")
+
+
+def _lane_strides(name, key, a, timed):
+    """(time stride, element stride) of ``a``, laid out ([T,] elems..., B):
+    the lane axis must be unit-stride and the element axes must collapse
+    into one axis of uniform stride (a contiguous tensor, or a (T, ..., B)
+    view of a node-layout (..., (T+1)·B) tensor)."""
+    sh, st = a.shape, a.stride()
+    lead = 1 if timed else 0
+    ok = st[-1] == 1
+    for k in range(lead, a.dim() - 2):
+        ok = ok and st[k] == st[k + 1] * sh[k + 1]
+    if not ok:
+        raise ValueError(f"{name}: {key} has strides {st}, which do not "
+                         "collapse to (time, element, lane)")
+    return (st[0] if timed else 0), st[-2]
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: Riccati backward pass
+# ---------------------------------------------------------------------------
+
+def riccati_backward(derivs_l, dterm_l, fs_l, xreg, ureg):
+    """CUDA twin of fused_scans.riccati_backward_lanes_plain."""
+    T, ndx = derivs_l.Fx.shape[0], fs_l.shape[1]
+    nu, B = derivs_l.Lu.shape[1], fs_l.shape[-1]
+    dt, dev = fs_l.dtype, fs_l.device
+    d = derivs_l
+    ins = dict(Fx=d.Fx, Fu=d.Fu, Lx=d.Lx, Lu=d.Lu, Lxx=d.Lxx, Lxu=d.Lxu,
+               Luu=d.Luu, LxT=dterm_l.Lx, LxxT=dterm_l.Lxx, fs=fs_l,
+               xreg=xreg, ureg=ureg)
+    strided = ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu", "LxT", "LxxT",
+               "fs")
+    _check("riccati_backward", ins, dt, dev, dict(
+        Fx=(T, ndx, ndx, B), Fu=(T, ndx, nu, B), Lx=(T, ndx, B),
+        Lu=(T, nu, B), Lxx=(T, ndx, ndx, B), Lxu=(T, ndx, nu, B),
+        Luu=(T, nu, nu, B), LxT=(ndx, B), LxxT=(ndx, ndx, B),
+        fs=(T + 1, ndx, B), xreg=(B,), ureg=(B,)), strided)
+    strides = np.array([s for key in strided for s in _lane_strides(
+        "riccati_backward", key, ins[key], key not in ("LxT", "LxxT"))],
+        dtype=np.int64)
+
+    def e(*s):
+        return torch.empty(s, dtype=dt, device=dev)
+    Vx, Vxx = e(T + 1, ndx, B), e(T + 1, ndx, ndx, B)
+    Qu, k, K, Quuk = e(T, nu, B), e(T, nu, B), e(T, nu, ndx, B), e(T, nu, B)
+    failed = torch.empty(B, dtype=torch.uint8, device=dev)
+    _launch("croc_riccati", dt, dev,
+            T, B, ndx, nu, strides.ctypes.data_as(ctypes.c_void_p),
+            *[_ptr(t) for t in ins.values()],
+            *[_ptr(t) for t in (Vx, Vxx, Qu, k, K, Quuk, failed)])
+    riccati_backward.launches += 1
+    return Vx, Vxx, Qu, k, K, Quuk, failed.bool()
+
+
+riccati_backward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The node descriptor (layout mirrored in csrc/node_math.cuh)
+# ---------------------------------------------------------------------------
+
+_COST_TYPES = ("CostState", "CostControl", "CostCoM", "CostFrameTranslation",
+               "CostFrameVelocity", "CostContactFrictionCone",
+               "CostContactForce")
+_ACT_TYPES = ("ActivationQuad", "ActivationWeightedQuad",
+              "ActivationQuadraticBarrier",
+              "ActivationWeightedQuadraticBarrier")
+_HEADER = 16
+
+
+def primal_scratch_elems(nj, nv, nq, nu, nc, nr):
+    """Elements of the scratch scalar per node of node_math.cuh's Lay."""
+    nx = nq + nv
+    return (nx + nu + 42 * nj + 6 * nv + nv * nv + nv + nc * nv + nc
+            + nv * (nc + 1) + nc * nc + nc + nv + 2 * nv + nx + nr)
+
+
+def tangent_scratch_elems(nj, nv, nu, nc, nr):
+    """Elements per node of node_kernel.cu's TanLay."""
+    nd = 2 * nv + nu
+    return 48 * nj + 30 * nv + (nv + nc + nr) * nd + 2 * nr
+
+
+class _Descriptor:
+    """meta (int32), robot (T) and packed knot parameters (K, P) on the
+    device, plus the dims the wrappers need."""
+
+    def __init__(self, seg, device, dtype):
+        from ..models.multibody.actuations import FullActuation
+        from ..models.multibody.costs import cost_nr
+        from ..ops.fused_node import supports
+        if not supports(seg):
+            raise ValueError("node structure not covered by the kernels")
+        st = seg.state_
+        m = st.model
+        nj, nv, nq = m.njoints, m.nv, m.nq
+        ndx, nu = 2 * nv, seg.actuation.nu
+        K = seg.dt.shape[0]
+        cols = []
+        width = [0]
+
+        def add(leaf):
+            if leaf is None:
+                return -1
+            a = leaf.reshape(K, -1)
+            cols.append(a)
+            width[0] += a.shape[1]
+            return width[0] - a.shape[1]
+
+        dt_off = add(seg.dt)
+        arm_off = add(seg.armature)
+        contacts = tuple(seg.contacts.contacts) if seg.contacts is not None \
+            else ()
+        con_ints = []
+        for c in contacts:
+            con_ints += [c.fid, add(c.pref), add(c.gains), add(c.active)]
+        cost_ints, row = [], 0
+        for ci in seg.costs.items:
+            ctype = _COST_TYPES.index(type(ci).__name__)
+            act = ci.activation
+            ref = {0: "xref", 1: "uref", 2: "cref", 3: "pref", 4: "vref",
+                   6: "fref"}.get(ctype)
+            ref_off = add(ci.cone.A if ctype == 5 else getattr(ci, ref))
+            idx = getattr(ci, "fid", getattr(ci, "contact_idx", 0))
+            nr = cost_nr(ci, ndx)
+            cost_ints += [ctype, _ACT_TYPES.index(type(act).__name__), idx,
+                          add(ci.weight), add(ci.active), ref_off,
+                          add(getattr(act, "weights", None)),
+                          add(getattr(act, "lb", None)),
+                          add(getattr(act, "ub", None)), nr, row, 0]
+            row += nr
+        _, v_off, _, amask, dof_joint, _, _, _ = _tree_meta(
+            tuple(m.parents), tuple(m.joint_types), tuple(m.frame_parents))
+        nc = 3 * len(contacts)
+        header = [nj, nv, nq, int(JointType(m.joint_types[0])
+                                  == JointType.FREE_FLYER),
+                  len(m.frame_parents), len(contacts), len(seg.costs.items),
+                  width[0], nu, int(isinstance(seg.actuation, FullActuation)),
+                  dt_off, arm_off, row, nc, 0, 0]
+        assert len(header) == _HEADER
+        joints = []
+        for j in range(nj):
+            joints += [int(m.joint_types[j]), int(m.parents[j]),
+                       int(v_off[j]), 0]
+        meta = (header + joints + amask.astype(int).reshape(-1).tolist()
+                + list(m.frame_parents) + con_ints + cost_ints
+                + [int(j) for j in dof_joint])
+        r = [m.jp_R, m.jp_p, m.axis, m.mass, m.com, m.inertia, m.fp_R,
+             m.fp_p, m.gravity]
+        robot = torch.cat([a[0].reshape(-1).to(torch.float64) for a in r]
+                          + [torch.tensor([float(seg.kkt_damping)],
+                                          dtype=torch.float64,
+                                          device=seg.dt.device)])
+        self.meta = torch.tensor(meta, dtype=torch.int32, device=device)
+        self.robot = robot.to(device=device, dtype=dtype).contiguous()
+        self.par = torch.cat([c.to(dtype) for c in cols], 1).to(
+            device).contiguous()
+        self.K, self.nx, self.ndx, self.nu, self.nr = K, nq + nv, ndx, nu, row
+        self.prim = primal_scratch_elems(nj, nv, nq, nu, nc, row)
+        self.tan = tangent_scratch_elems(nj, nv, nu, nc, row)
+        if ndx + nu > 64:
+            raise ValueError("the node kernel takes ndx + nu <= 64")
+
+
+_DESC = collections.OrderedDict()
+
+
+def descriptor(seg, device, dtype) -> _Descriptor:
+    """The descriptor of ``seg`` on (device, dtype), built once and kept for
+    the last few segments (the key holds a reference to ``seg``, so its id
+    cannot be reused while cached)."""
+    key = (id(seg), str(device), dtype)
+    hit = _DESC.get(key)
+    if hit is not None and hit[0] is seg:
+        _DESC.move_to_end(key)
+        return hit[1]
+    desc = _Descriptor(seg, device, dtype)
+    _DESC[key] = (seg, desc)
+    while len(_DESC) > 8:
+        _DESC.popitem(last=False)
+    return desc
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: node linearization
+# ---------------------------------------------------------------------------
+
+def node_calc_both(seg, x_l, u_l):
+    """CUDA twin of fused_node.calc_both_lanes_plain."""
+    from ..core.action import NodeDerivs
+    dt, dev = x_l.dtype, x_l.device
+    desc = descriptor(seg, dev, dt)
+    N = x_l.shape[-1]
+    if N % desc.K:
+        raise ValueError(f"{N} nodes do not split into {desc.K} knots")
+    B = N // desc.K
+    ndx, nu = desc.ndx, desc.nu
+    _check("node_calc_both", dict(x=x_l, u=u_l), dt, dev,
+           dict(x=(desc.nx, N), u=(nu, N)))
+
+    def e(*s):
+        return torch.empty(s + (N,), dtype=dt, device=dev)
+    Fx, Fu, Lx, Lu = e(ndx, ndx), e(ndx, nu), e(ndx), e(nu)
+    Lxx, Lxu, Luu, xnext, cost = e(ndx, ndx), e(ndx, nu), e(nu, nu), \
+        e(desc.nx), e()
+    scratch = e(desc.prim + desc.tan)
+    _launch("croc_node", dt, dev,
+            N, B, _ptr(desc.meta), _ptr(desc.robot), _ptr(desc.par),
+            _ptr(x_l), _ptr(u_l),
+            *[_ptr(t) for t in (Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost,
+                                scratch)])
+    node_calc_both.launches += 1
+    return (NodeDerivs(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu,
+                       Luu=Luu), xnext, cost)
+
+
+node_calc_both.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: trial rollout
+# ---------------------------------------------------------------------------
+
+def trial_rollout(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha):
+    """CUDA twin of fused_scans.trial_rollout_lanes_plain."""
+    dt, dev = x0_l.dtype, x0_l.device
+    desc = descriptor(seg, dev, dt)
+    T, B = us_l.shape[0], x0_l.shape[-1]
+    nx, ndx, nu = desc.nx, desc.ndx, desc.nu
+    if T != desc.K:
+        raise ValueError(f"{T} steps for {desc.K} knots")
+    _check("trial_rollout", dict(x0=x0_l, xs=xs_l, us=us_l, k=k_l, K=K_l,
+                                 fs=fs_l), dt, dev,
+           dict(x0=(nx, B), xs=(T, nx, B), us=(T, nu, B), k=(T, nu, B),
+                K=(T, nu, ndx, B), fs=(T, ndx, B)))
+
+    def e(*s):
+        return torch.empty(s, dtype=dt, device=dev)
+    xs_try, us_try, x_last, cost = e(T, nx, B), e(T, nu, B), e(nx, B), e(B)
+    failed = torch.empty(B, dtype=torch.uint8, device=dev)
+    scratch = e((desc.prim + 2 * ndx) * B)
+    _launch("croc_rollout", dt, dev,
+            T, B, _ptr(desc.meta), _ptr(desc.robot), _ptr(desc.par),
+            *[_ptr(t) for t in (x0_l, xs_l, us_l, k_l, K_l, fs_l)],
+            ctypes.c_double(float(alpha)),
+            *[_ptr(t) for t in (xs_try, us_try, x_last, cost, failed,
+                                scratch)])
+    trial_rollout.launches += 1
+    return xs_try, us_try, x_last, cost, failed.bool()
+
+
+trial_rollout.launches = 0
+
+
+def reset_counts():
+    """Zero the launch counts of the three wrappers."""
+    riccati_backward.launches = 0
+    node_calc_both.launches = 0
+    trial_rollout.launches = 0

@@ -1,0 +1,142 @@
+"""Batched Riccati backward pass and trial rollout in lane layout —
+kernels 2 and 3 of the port.
+
+Port of ``riccati_backward_lanes`` and ``trial_rollout_lanes``
+(crocoddyl_tpu/ops/fused_scans.py:350-720).  Problems ride the trailing
+lane axis B; time is the leading axis.  The functions named ``*_plain`` are
+the plain PyTorch versions (a loop over t of the JAX step functions); the
+wrappers send CUDA tensors to the kernels of csrc/riccati_kernel.cu and
+csrc/rollout_kernel.cu and CPU tensors to the plain versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.action import NodeDerivs
+from ..dynamics.model import JointType
+from ..utils.struct import tree_map
+from .fused_node import (_lane_state_diff, lane_calc_primal, lane_integrate,
+                         lane_params, lchol, lcho_solve, leye, lmm_chunk,
+                         lmv, lT)
+
+
+def _riccati_step(Vx_n, Vxx_n, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, f, xreg, ureg):
+    """One reversed-time step (fused_scans.py:375-410)."""
+    nu, ndx = Lu.shape[0], Lx.shape[0]
+    FxT = lT(Fx)
+    FxT_Vxx = lmm_chunk(FxT, Vxx_n, chunk=6)
+    Qxx = Lxx + lmm_chunk(FxT_Vxx, Fx, chunk=6)
+    Qx = Lx + lmv(FxT, Vx_n)
+    Qxu = Lxu + lmm_chunk(FxT_Vxx, Fu, chunk=6)
+    FuT = lT(Fu)
+    Quu = Luu + lmm_chunk(lmm_chunk(FuT, Vxx_n, chunk=6), Fu, chunk=6)
+    Quu = Quu + ureg[None, None] * leye(nu, Quu[0])
+    Qu = Lu + lmv(FuT, Vx_n)
+    diag_q = (Quu * leye(nu, Quu[0])).sum(1)
+    dscale = torch.sqrt(torch.clamp(diag_q, min=1e-30))
+    Quu_eq = Quu / dscale[:, None] / dscale[None, :]
+    chol = lchol(Quu_eq)
+    bad_ch = torch.isnan(chol).any(dim=1).any(dim=0)
+
+    def chol_solve_mat(Bm):
+        return lcho_solve(chol, Bm / dscale[:, None]) / dscale[:, None]
+
+    K = chol_solve_mat(lT(Qxu))
+    kvec = chol_solve_mat(Qu[:, None])[:, 0]
+    Quuk = lmv(Quu, kvec)
+    KT = lT(K)
+    Vx = Qx + lmv(KT, Quuk) - 2.0 * lmv(KT, Qu)
+    Vxx = Qxx - lmm_chunk(Qxu, K, chunk=6)
+    Vxx = 0.5 * (Vxx + lT(Vxx))
+    Vxx = Vxx + xreg[None, None] * leye(ndx, Vxx[0])
+    Vx = Vx + lmv(Vxx, f)
+    bad = (bad_ch | ~(Vx.abs().amax(0) < 1e30)
+           | ~(Vxx.abs().amax((0, 1)) < 1e30))
+    return Vx, Vxx, Qu, kvec, K, Quuk, bad
+
+
+def riccati_backward_lanes_plain(derivs_l, dterm_l, fs_l, xreg, ureg):
+    """Plain PyTorch version of the Riccati kernel.  Ports
+    fused_scans.py:350-453 (its lax.scan path): derivs_l leaves (T, ..., B),
+    dterm_l Lx (ndx, B) / Lxx (ndx, ndx, B), fs_l (T+1, ndx, B), xreg/ureg
+    (B,).  Returns (Vx (T+1,ndx,B), Vxx (T+1,ndx,ndx,B), Qu (T,nu,B),
+    k (T,nu,B), K (T,nu,ndx,B), Quuk (T,nu,B), failed (B,) bool)."""
+    riccati_backward_lanes_plain.calls += 1
+    T = derivs_l.Fx.shape[0]
+    ndx = fs_l.shape[1]
+    VxxT = dterm_l.Lxx + xreg[None, None] * leye(ndx, dterm_l.Lxx[0])
+    VxT = dterm_l.Lx + lmv(VxxT, fs_l[-1])
+    failed = ~(VxT.abs().amax(0) < 1e30) | ~(VxxT.abs().amax((0, 1)) < 1e30)
+    Vx, Vxx = [None] * (T + 1), [None] * (T + 1)
+    Qu, kv, K, Quuk = [None] * T, [None] * T, [None] * T, [None] * T
+    Vx[T], Vxx[T] = VxT, VxxT
+    d = derivs_l
+    for t in reversed(range(T)):
+        (Vx[t], Vxx[t], Qu[t], kv[t], K[t], Quuk[t], bad) = _riccati_step(
+            Vx[t + 1], Vxx[t + 1], d.Fx[t], d.Fu[t], d.Lx[t], d.Lu[t],
+            d.Lxx[t], d.Lxu[t], d.Luu[t], fs_l[t], xreg, ureg)
+        failed = failed | bad
+    st = torch.stack
+    return st(Vx), st(Vxx), st(Qu), st(kv), st(K), st(Quuk), failed
+
+
+riccati_backward_lanes_plain.calls = 0
+
+
+def riccati_backward_lanes(derivs_l, dterm_l, fs_l, xreg, ureg):
+    """Batched Riccati backward pass (see the plain version for shapes)."""
+    if fs_l.is_cuda:
+        from . import cuda_kernels
+        return cuda_kernels.riccati_backward(derivs_l, dterm_l, fs_l, xreg,
+                                             ureg)
+    return riccati_backward_lanes_plain(derivs_l, dterm_l, fs_l, xreg, ureg)
+
+
+def trial_rollout_lanes_plain(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, fsT_l,
+                              alpha):
+    """Plain PyTorch version of the rollout kernel.  Ports
+    fused_scans.py:554-640 (its lax.scan path): seg leaves (T, ...) are the
+    knot parameters, read by knot; x0_l (nx, B); xs_l/us_l/k_l/K_l/fs_l
+    (T, ..., B); alpha a float.  Returns (xs_try (T,nx,B), us_try (T,nu,B),
+    x_last (nx,B), cost (B,), failed (B,) bool)."""
+    trial_rollout_lanes_plain.calls += 1
+    st = seg.state_
+    nq, nv = st.nq, st.nv
+    has_ff = JointType(st.model.joint_types[0]) == JointType.FREE_FLYER
+    T, B = us_l.shape[0], x0_l.shape[-1]
+    xnext = x0_l
+    cost = torch.zeros(B, dtype=x0_l.dtype, device=x0_l.device)
+    failed = torch.zeros(B, dtype=torch.bool, device=x0_l.device)
+    xs_try, us_try = [], []
+    for t in range(T):
+        x_try = lane_integrate(has_ff, nq, nv, xnext, (alpha - 1.0) * fs_l[t])
+        dx, _ = _lane_state_diff(has_ff, nq, nv, xs_l[t], x_try)
+        u_try = us_l[t] - alpha * k_l[t] - lmv(K_l[t], dx)
+        knot = lane_params(tree_map(lambda l: l[t:t + 1], seg), B)
+        xnext, c = lane_calc_primal(knot, x_try, u_try)
+        cost = cost + c
+        failed = failed | ~((cost.abs() < 1e30)
+                            & (xnext.abs().amax(0) < 1e30))
+        xs_try.append(x_try)
+        us_try.append(u_try)
+    return torch.stack(xs_try), torch.stack(us_try), xnext, cost, failed
+
+
+trial_rollout_lanes_plain.calls = 0
+
+
+def trial_rollout_lanes(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, fsT_l, alpha):
+    """One batched FDDP trial rollout at scalar step length ``alpha``
+    (see the plain version for shapes).  ``fsT_l`` (fs[T]) is not read: the
+    terminal node stays with the caller, as in the JAX signature."""
+    if x0_l.is_cuda:
+        from . import cuda_kernels
+        return cuda_kernels.trial_rollout(seg, x0_l, xs_l, us_l, k_l, K_l,
+                                          fs_l, alpha)
+    return trial_rollout_lanes_plain(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l,
+                                     fsT_l, alpha)
+
+
+__all__ = ["NodeDerivs", "riccati_backward_lanes", "trial_rollout_lanes",
+           "riccati_backward_lanes_plain", "trial_rollout_lanes_plain"]

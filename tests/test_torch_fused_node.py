@@ -1,0 +1,156 @@
+"""Node linearization: the port's plain version of kernel 1
+(``calc_both_lanes_plain``), and the per-node body of the CUDA kernel
+compiled for the host, vs the JAX lane body (``calc_both_lanes(...,
+"jnp")``), float64 on CPU.
+
+Tolerances: derivative fields within 1e-10 of each field's max-abs (both
+sides run the same closed-form math; only summation order and libm differ),
+xnext and cost within 1e-12 relative."""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from tests._torch_parity import jax_node_case, max_rel, np_, t64, to_port
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "crocoddyl_tpu_torch", "csrc")
+
+# A host loop over the nodes around the CUDA kernel's per-node body.
+_HOST_LOOP = """
+extern "C" void node_host_f64(
+    int N, int B, const int* meta, const double* robot, const double* par,
+    const double* x, const double* u, double* Fx, double* Fu, double* Lx,
+    double* Lu, double* Lxx, double* Lxu, double* Luu, double* xnext,
+    double* cost, double* scratch) {
+  const croc::Desc<double> d{meta, robot};
+  for (int n = 0; n < N; ++n)
+    croc::node_one(n, N, B, d, par, x, u, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu,
+                   xnext, cost, scratch);
+}
+"""
+
+FIELDS = ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu")
+
+
+@pytest.fixture(scope="module")
+def case():
+    knots, xn, un, B, ref = jax_node_case()
+    return to_port(knots), t64(xn.T), t64(un.T), B, ref
+
+
+def test_plain_node_matches_jax(case):
+    from crocoddyl_tpu_torch.ops import fused_node as tfn
+    seg, x, u, B, (d_ref, x_ref, c_ref) = case
+    d, xnext, cost = tfn.calc_both_lanes(seg, x, u)
+    for f in FIELDS:
+        assert max_rel(getattr(d_ref, f), getattr(d, f)) < 1e-10, f
+    assert max_rel(x_ref, xnext) < 1e-12
+    assert max_rel(c_ref, cost) < 1e-12
+
+
+def test_dt0_nodes_are_terminal(case):
+    """dt=0 nodes give Fx = I and Fu = 0 exactly and xnext = x."""
+    from crocoddyl_tpu_torch.ops import fused_node as tfn
+    seg, x, u, B, _ = case
+    d, xnext, _ = tfn.calc_both_lanes(seg, x, u)
+    term = slice(x.shape[-1] - B, x.shape[-1])
+    Fx, Fu = np_(d.Fx)[..., term], np_(d.Fu)[..., term]
+    np.testing.assert_array_equal(Fx, np.broadcast_to(
+        np.eye(Fx.shape[0])[:, :, None], Fx.shape))
+    np.testing.assert_array_equal(Fu, 0.0)
+    np.testing.assert_array_equal(np_(xnext)[:, term], np_(x)[:, term])
+
+
+def test_node_wrapper_takes_plain_version_on_cpu(case):
+    """On CPU tensors the wrapper calls the plain version, never the
+    kernel."""
+    from crocoddyl_tpu_torch.ops import cuda_kernels
+    from crocoddyl_tpu_torch.ops import fused_node as tfn
+    seg, x, u, _, _ = case
+    before = tfn.calc_both_lanes_plain.calls
+    tfn.calc_both_lanes(seg, x, u)
+    assert tfn.calc_both_lanes_plain.calls == before + 1
+    assert cuda_kernels.node_calc_both.launches == 0
+
+
+def test_node_rejects_ragged_nodes(case):
+    from crocoddyl_tpu_torch.ops import fused_node as tfn
+    seg, x, u, _, _ = case
+    with pytest.raises(ValueError):
+        tfn.calc_both_lanes(seg, x[:, 1:], u[:, 1:])
+
+
+@pytest.mark.parametrize("knot", [1, -1])
+def test_node_methods_match_lanes(case, knot):
+    """RigidBodyNode.calc / calc_both on one knot and one (x, u) give that
+    node's column of the lane linearization (running and dt=0 knots)."""
+    from crocoddyl_tpu_torch.ops import fused_node as tfn
+    from crocoddyl_tpu_torch.utils.struct import tree_map
+    seg, x, u, B, _ = case
+    d, xnext, cost = tfn.calc_both_lanes(seg, x, u)
+    K = seg.dt.shape[0]
+    k = knot % K
+    node = tree_map(lambda l: l[k], seg)
+    n = k * B + 1
+    d1, x1, c1 = node.calc_both(x[:, n], u[:, n])
+    for f in FIELDS:
+        assert max_rel(getattr(d, f)[..., n], getattr(d1, f)) < 1e-12, f
+    assert max_rel(xnext[:, n], x1) < 1e-12
+    assert max_rel(cost[n], c1) < 1e-12
+    x2, c2 = node.calc(x[:, n], u[:, n])
+    assert max_rel(xnext[:, n], x2) < 1e-12
+    assert max_rel(cost[n], c2) < 1e-12
+
+
+@pytest.fixture(scope="module")
+def node_host(tmp_path_factory):
+    """csrc/node_kernel.cu's per-node body (``node_one``), built for the
+    host by the C++ compiler that builds native/urdf_loader.cpp."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a C++ compiler is needed (it also builds the URDF parser)"
+    d = tmp_path_factory.mktemp("node_host")
+    src, so = d / "node_host.cpp", d / "libnode_host.so"
+    src.write_text(f'#include "{CSRC}/node_kernel.cu"\n' + _HOST_LOOP)
+    res = subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+                          "-o", str(so), str(src)], capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    return ctypes.CDLL(str(so))
+
+
+def test_node_kernel_source_matches_jax(case, node_host):
+    """The CUDA node kernel's math (descriptor, closed-form tangents,
+    Gauss-Newton, chain rule), run on the host over the same nodes, against
+    the JAX lane code; dt=0 nodes give Fx = I and Fu = 0 exactly."""
+    from crocoddyl_tpu_torch.ops import cuda_kernels as ck
+    seg, x, u, B, (d_ref, x_ref, c_ref) = case
+    x, u = x.contiguous(), u.contiguous()
+    desc = ck.descriptor(seg, torch.device("cpu"), torch.float64)
+    N, ndx, nu = x.shape[-1], desc.ndx, desc.nu
+
+    def e(*s):
+        return torch.zeros(s + (N,), dtype=torch.float64)
+    out = dict(Fx=e(ndx, ndx), Fu=e(ndx, nu), Lx=e(ndx), Lu=e(nu),
+               Lxx=e(ndx, ndx), Lxu=e(ndx, nu), Luu=e(nu, nu),
+               xnext=e(desc.nx), cost=e())
+    scratch = e(desc.prim + desc.tan)
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+    node_host.node_host_f64(N, B, ptr(desc.meta), ptr(desc.robot),
+                            ptr(desc.par), ptr(x), ptr(u),
+                            *[ptr(t) for t in out.values()], ptr(scratch))
+    for f in FIELDS:
+        assert max_rel(getattr(d_ref, f), out[f]) < 1e-10, f
+    assert max_rel(x_ref, out["xnext"]) < 1e-12
+    assert max_rel(c_ref, out["cost"]) < 1e-12
+    term = slice(N - B, N)
+    np.testing.assert_array_equal(np_(out["Fx"])[..., term], np.broadcast_to(
+        np.eye(ndx)[:, :, None], (ndx, ndx, B)))
+    np.testing.assert_array_equal(np_(out["Fu"])[..., term], 0.0)
