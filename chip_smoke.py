@@ -1,21 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's two paths once on one NVIDIA GPU.
 
-Phases (any failure exits non-zero):
+Phases (any failure exits non-zero; each prints its seconds):
 
 1. card: CUDA present, card name and power limit, TF32 off;
-2. build: compile the three CUDA kernels of crocoddyl_tpu_torch/csrc for
-   sm_90a;
-3. kernels: each kernel against its plain PyTorch version on the card, in
-   float64 at the reduced walk and at bench size, and in float32 at bench
-   size;
-4. main path: ``solve_batch(maxiter=1)`` on the ANYmal walk (T=108, B=256)
-   through the kernels in float32 (launch counts, finite costs), then the
-   float64 kernel path against the float64 plain path (same decisions);
-5. timing: CUDA events, one warm-up, median of 5 runs;
-6. profile: one float32 step under ``torch.profiler``: each kernel's device
-   time, the rest of the device time (ATen glue), and the idle share of the
-   step's wall time (also written to chiprun_out/chip_smoke/profile.json).
+2. build: compile the five CUDA kernels of crocoddyl_tpu_torch/csrc for
+   sm_90a, one nvcc per source, all at once;
+3. kernels: each kernel against its plain PyTorch version on the card:
+   the batch lane's node, Riccati and rollout kernels in float64 at the
+   reduced walk and at bench size and in float32 at bench size; the b=1
+   lane's Riccati and rollout kernels (and the node kernel at the T+1 nodes
+   of one problem) in float64 and, at the warm start, float32 against the
+   float64 plain version, with a forced Riccati failure;
+4. batch lane: ``solve_batch(maxiter=1)`` on the ANYmal walk (T=108,
+   B=256) through the kernels in float32 (launch counts, finite costs),
+   then the float64 kernel path against the float64 plain path (same
+   decisions);
+5. b=1 lane: ``solve(maxiter=1)``, the MPC replan, on the same walk from
+   the quasi-static warm start through kernels 1, 4 and 5 in float32
+   (launch counts, finite cost); float64 kernel path against plain path
+   (same decisions); ``solve(maxiter=20)`` on the reduced walk, kernel
+   path against plain path (same decisions); ``solve(maxiter=50)`` at
+   T=108 converges and becomes the steady-state warm start;
+6. timing: CUDA events, one warm-up, median of 5 runs: the batch step, the
+   cold and the steady-state b=1 replan, and each kernel beside its plain
+   version at its lane's shapes;
+7. profile: one float32 batch step and one float32 cold replan under
+   ``torch.profiler``: each kernel's device time, the rest of the device
+   time (ATen glue), the idle share of the wall time and the stream syncs
+   (chiprun_out/chip_smoke/profile.json and profile_b1.json).
+
+The line before the last two is the ``kernels`` JSON object: for each of
+the five kernels its launches on its lane's main path, its error against
+the plain version, its time and the plain version's, and its bound: the
+larger of its bytes (inputs read once, outputs written once) over 3.35
+TB/s and its operations over 67 TFLOP/s (float32 outside the tensor cores;
+operations counted by a dispatch-level counter over the plain version at
+one node or one step, scaled by the shapes).
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one GPU).  The
 last line of standard output is ``{"ok": true, "device": {...}}``; the line
@@ -55,6 +76,12 @@ TOL_F32 = 1e-4
 # random states, or below ~1e-2, Quu loses definiteness in float32 on this
 # walk (the plain version fails too), and a lane on the edge could flip
 REG_F32 = 1.0
+# the bound of a kernel: bytes over the memory rate, operations over the
+# float32 rate outside the tensor cores (H100 SXM data sheet, 700 W)
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+LIBRARY_NONE = ("no single PyTorch call computes it: a sequential "
+                "recursion or node model written for this solver")
 
 
 def log(*a):
@@ -238,6 +265,201 @@ def check_kernels(torch, prob, B, dev, dt, tag, seed=0, warm=None,
     return errs, inp, derivs_l, dterm_l, xreg, k_l, K_l
 
 
+
+def check_b1_kernels(torch, prob, dev, dt, tag, seed=0, warm=None, reg=1e-9):
+    """The b=1 lane's kernels against their plain versions on one problem:
+    the node kernel at the T+1 nodes, the single-problem Riccati pass at
+    regularization ``reg`` (and with a negative ureg, which must fail in
+    both), the single-problem rollout at α=0.5 with the plain gains.
+    Returns ({kernel: max_abs}, the inputs of each kernel)."""
+    from crocoddyl_tpu_torch.ops import cuda_kernels as ck
+    from crocoddyl_tpu_torch.ops import fused_node as fn
+    from crocoddyl_tpu_torch.ops import fused_scans as fsc
+    from crocoddyl_tpu_torch.utils.struct import tree_map
+    f32 = dt == torch.float32
+    inp = kernel_inputs(torch, prob, 1, dev, dt, seed, warm)
+    T = prob.T
+
+    def up(tree):
+        return to_dev(torch, tree, dev, torch.float64) if f32 else None
+
+    def one(tree):
+        return tree_map(lambda a: a[..., 0].contiguous(), tree)
+    errs = {}
+    fields = ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu")
+    node_args = (inp["knots"], inp["x_n"], inp["u_n"])
+    kd, kx, kc = ck.node_calc_both(*node_args)
+    pd, px, pc = fn.calc_both_lanes_plain(*node_args)
+    rn = None
+    if f32:
+        rd, rx, rc = fn.calc_both_lanes_plain(*up(node_args))
+        rn = [getattr(rd, f) for f in fields] + [rx, rc]
+    torch.cuda.synchronize()
+    errs["node_b1"] = _agree(tag, "node b=1", fields + ("xnext", "cost"),
+                             [getattr(kd, f) for f in fields] + [kx, kc],
+                             [getattr(pd, f) for f in fields] + [px, pc], rn)
+    derivs_l, dterm_l = split_derivs(torch, pd, T, 1)
+    ric_args = (one(derivs_l), one(dterm_l), inp["fs"][..., 0].contiguous())
+    kr = ck.riccati_backward_b1(*ric_args, reg, reg)
+    pr = fsc.riccati_backward_fused_plain(*ric_args, reg, reg)
+    rr = (fsc.riccati_backward_fused_plain(*up(ric_args), reg, reg)
+          if f32 else None)
+    kf = ck.riccati_backward_b1(*ric_args, reg, -1e6)[-1]
+    pf = fsc.riccati_backward_fused_plain(*ric_args, reg, -1e6)[-1]
+    torch.cuda.synchronize()
+    need(not bool(kr[-1]) and not bool(pr[-1]),
+         f"riccati b=1 failed at reg {reg} ({tag}): kernel {bool(kr[-1])}, "
+         f"plain {bool(pr[-1])}")
+    need(bool(kf) and bool(pf), f"riccati b=1 forced failure not flagged "
+         f"({tag}): kernel {bool(kf)}, plain {bool(pf)}")
+    names = ("Vx", "Vxx", "Qu", "k", "K", "Quuk")
+    errs["riccati_b1"] = _agree(tag, "riccati b=1", names, kr[:-1], pr[:-1],
+                                None if rr is None else rr[:-1])
+    ro_args = (prob.running, inp["xs_l"][0, :, 0].contiguous(),
+               inp["xs_l"][:-1, :, 0].contiguous(),
+               inp["us_l"][..., 0].contiguous(), pr[3], pr[4],
+               ric_args[2][:-1].contiguous())
+    ko = ck.trial_rollout_b1(*ro_args, 0.5)
+    po = fsc.trial_rollout_fused_plain(*ro_args, 0.5)
+    ro = fsc.trial_rollout_fused_plain(*up(ro_args), 0.5) if f32 else None
+    torch.cuda.synchronize()
+    need(bool(ko[-1]) == bool(po[-1]) and not bool(po[-1]),
+         f"rollout b=1 failure flags ({tag}): kernel {bool(ko[-1])}, plain "
+         f"{bool(po[-1])}")
+    names = ("xs_try", "us_try", "x_last", "cost")
+    errs["rollout_b1"] = _agree(tag, "rollout b=1", names, ko[:-1], po[:-1],
+                                None if ro is None else ro[:-1])
+    return errs, dict(node_b1=node_args, riccati_b1=ric_args,
+                      rollout_b1=ro_args)
+
+
+def count_ops(torch, fn):
+    """Floating-point operations that ``fn()`` dispatches: 2·m·k·n for a
+    matrix product, the input size for a reduction, the output size for
+    any other operation on floating tensors; copies, views, concatenation,
+    indexing, selection (``where``) and tensor creation count nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+    free = {"view", "_unsafe_view", "reshape", "expand", "clone", "copy",
+            "_to_copy", "slice", "select", "cat", "stack", "index_select",
+            "index", "permute", "transpose", "t", "unsqueeze", "squeeze",
+            "unbind", "split", "split_with_sizes", "alias", "detach",
+            "lift_fresh", "as_strided", "zeros", "zeros_like", "ones",
+            "ones_like", "full", "full_like", "empty", "empty_like",
+            "new_zeros", "new_ones", "new_full", "new_empty",
+            "empty_strided", "arange", "eye", "fill", "where",
+            "scalar_tensor", "_local_scalar_dense", "masked_fill",
+            "repeat", "expand_as", "lift_fresh_copy", "movedim"}
+    reduce_ = {"sum", "amax", "amin", "max", "min", "mean", "prod", "any",
+               "all", "norm", "linalg_vector_norm"}
+    mm = {"mm", "bmm", "matmul", "addmm", "baddbmm"}
+    total = [0]
+
+    class Counter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            ins = [a for a in tree_flatten((args, kwargs))[0]
+                   if isinstance(a, torch.Tensor)]
+            if name in free or not any(a.is_floating_point() for a in ins):
+                return out
+            if name in mm:
+                total[0] += 2 * ins[-2].numel() * ins[-1].shape[-1]
+            elif name in reduce_:
+                total[0] += max(a.numel() for a in ins)
+            else:
+                total[0] += sum(o.numel() for o in tree_flatten(out)[0]
+                                if isinstance(o, torch.Tensor))
+            return out
+    with Counter():
+        fn()
+    return total[0]
+
+
+def op_counts(torch, prob):
+    """Operations per node of the node linearization, per Riccati step (and
+    the terminal), per rollout step: ``count_ops`` over the plain versions
+    on the CPU in float64 at one node, and at one and two steps."""
+    from crocoddyl_tpu_torch.ops import fused_node as fn
+    from crocoddyl_tpu_torch.ops import fused_scans as fsc
+    from crocoddyl_tpu_torch.utils.struct import tree_map
+    cpu = to_dev(torch, prob, "cpu", torch.float64)
+    inp = kernel_inputs(torch, cpu, 1, "cpu", torch.float64, seed=0)
+    knot0 = tree_map(lambda l: l[:1], inp["knots"])
+    node = count_ops(torch, lambda: fn.calc_both_lanes_plain(
+        knot0, inp["x_n"][:, :1], inp["u_n"][:, :1]))
+    pd = fn.calc_both_lanes_plain(inp["knots"], inp["x_n"], inp["u_n"])[0]
+    d_l, dT_l = split_derivs(torch, pd, prob.T, 1)
+    reg = torch.full((1,), 1e-9, dtype=torch.float64)
+    _, _, _, k_l, K_l, _, _ = fsc.riccati_backward_lanes_plain(
+        d_l, dT_l, inp["fs"], reg, reg)
+
+    def ric(n):
+        return count_ops(torch, lambda: fsc.riccati_backward_lanes_plain(
+            tree_map(lambda a: a[:n], d_l), dT_l, inp["fs"][:n + 1], reg,
+            reg))
+
+    def ro(n):
+        return count_ops(torch, lambda: fsc.trial_rollout_lanes_plain(
+            tree_map(lambda l: l[:n], cpu.running), inp["xs_l"][0],
+            inp["xs_l"][:n], inp["us_l"][:n], k_l[:n], K_l[:n],
+            inp["fs"][:n], None, 0.5))
+    r1, r2 = ric(1), ric(2)
+    return dict(node=node, riccati_step=r2 - r1, riccati_term=2 * r1 - r2,
+                rollout_step=ro(2) - ro(1))
+
+
+def nbytes(torch, *trees):
+    """Bytes of every tensor in ``trees``."""
+    from torch.utils._pytree import tree_flatten
+    return sum(t.numel() * t.element_size() for t in tree_flatten(trees)[0]
+               if isinstance(t, torch.Tensor))
+
+
+def bound_ms(n_bytes, n_ops):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+class plain_path:
+    """Within the block, the solvers call the plain versions in place of
+    the kernels (the plain path: the same solvers on the same device)."""
+
+    def __enter__(self):
+        from crocoddyl_tpu_torch.ops import fused_node as fn
+        from crocoddyl_tpu_torch.ops import fused_scans as fsc
+        self.saved = [(fn, "calc_both_lanes", fn.calc_both_lanes_plain)] + [
+            (fsc, n, getattr(fsc, n + "_plain"))
+            for n in ("riccati_backward_lanes", "trial_rollout_lanes",
+                      "riccati_backward_fused", "trial_rollout_fused")]
+        self.saved = [(m, n, getattr(m, n), p) for m, n, p in self.saved]
+        for m, n, _, p in self.saved:
+            setattr(m, n, p)
+
+    def __exit__(self, *exc):
+        for m, n, orig, _ in self.saved:
+            setattr(m, n, orig)
+
+
+def reset_counts():
+    """Zero every kernel's launch count and every plain version's call
+    count."""
+    from crocoddyl_tpu_torch.ops import cuda_kernels as ck
+    from crocoddyl_tpu_torch.ops import fused_node as fn
+    from crocoddyl_tpu_torch.ops import fused_scans as fsc
+    ck.reset_counts()
+    for f in (fn.calc_both_lanes_plain,) + fsc.PLAIN:
+        f.calls = 0
+
+
+def plain_calls():
+    from crocoddyl_tpu_torch.ops import fused_node as fn
+    from crocoddyl_tpu_torch.ops import fused_scans as fsc
+    return [f.calls for f in (fn.calc_both_lanes_plain,) + fsc.PLAIN]
+
+
 def cuda_time(torch, fn, runs=5):
     """Median milliseconds of ``fn`` over ``runs`` runs after one warm-up."""
     fn()
@@ -254,10 +476,11 @@ def cuda_time(torch, fn, runs=5):
     return statistics.median(ts)
 
 
-def profile_step(torch, step):
+def profile_step(torch, step, keys):
     """Device-time breakdown of one ``step()`` under torch.profiler: ms per
-    kernel of the path, the other device time (glue), the device total, the
-    wall time and its idle share; None if the trace holds no device time."""
+    kernel of the path (a device event whose name holds ``{key}_kernel``),
+    the other device time (glue), the device total, the wall time and its
+    idle share; None if the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -268,7 +491,7 @@ def profile_step(torch, step):
         step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kern = {"node": 0.0, "riccati": 0.0, "rollout": 0.0}
+    kern = {k: 0.0 for k in keys}
     total, glue_n, syncs, h2d = 0.0, 0, 0, 0
     for e in prof.events():
         if e.device_type == DeviceType.CPU:
@@ -309,12 +532,18 @@ def main():
         from crocoddyl_tpu_torch.ops import cuda_kernels as ck
         from crocoddyl_tpu_torch.ops import fused_node as fn
         from crocoddyl_tpu_torch.ops import fused_scans as fsc
-        from crocoddyl_tpu_torch import SolverSettings, solve_batch
+        from crocoddyl_tpu_torch import SolverSettings, solve, solve_batch
     except ImportError as e:
         print(f"chip_smoke: the port is not next to this script ({e})",
               file=sys.stderr)
         return 1
     os.makedirs(OUT, exist_ok=True)
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name):
+        t = time.perf_counter()
+        log(f"[{name}] phase took {t - t_phase[0]:.1f} s")
+        t_phase[0] = t
 
     # ---- 1. card --------------------------------------------------------
     card = card_line()
@@ -324,28 +553,34 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device(DEVICE)
+    f32, f64 = torch.float32, torch.float64
 
     # ---- 2. build -------------------------------------------------------
     secs = ck.build(verbose=True)
     with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
         f.write(ck.build_log())
     log(f"[build] {secs:.1f} s  ({card})")
+    phase_done("build")
 
     # ---- 3. kernels against their plain versions -------------------------
     small, xs0_s, us0_s = build_walk(torch, 3, 1)
-    check_kernels(torch, to_dev(torch, small, dev, torch.float64), 3, dev,
-                  torch.float64, "f64 reduced")
+    check_kernels(torch, to_dev(torch, small, dev, f64), 3, dev, f64,
+                  "f64 reduced")
     prob, xs0, us0 = build_walk(torch, 25, 2)
-    T = prob.T
-    p64 = to_dev(torch, prob, dev, torch.float64)
-    p32 = to_dev(torch, prob, dev, torch.float32)
-    errs64 = check_kernels(torch, p64, B_BENCH, dev, torch.float64,
-                           "f64 bench")[0]
+    T, nx, nu = prob.T, prob.state.nx, prob.nu
+    p64 = to_dev(torch, prob, dev, f64)
+    p32 = to_dev(torch, prob, dev, f32)
+    errs64 = check_kernels(torch, p64, B_BENCH, dev, f64, "f64 bench")[0]
     errs, inp, derivs_l, dterm_l, xreg, k_l, K_l = check_kernels(
-        torch, p32, B_BENCH, dev, torch.float32, "f32 bench",
-        warm=(xs0, us0), reg=REG_F32)
+        torch, p32, B_BENCH, dev, f32, "f32 bench", warm=(xs0, us0),
+        reg=REG_F32)
+    errs64.update(check_b1_kernels(torch, p64, dev, f64, "f64 b=1")[0])
+    errs_b1, b1_in = check_b1_kernels(torch, p32, dev, f32, "f32 b=1",
+                                      warm=(xs0, us0), reg=REG_F32)
+    errs.update(errs_b1)
+    phase_done("kernels")
 
-    # ---- 4. main path ---------------------------------------------------
+    # ---- 4. batch lane --------------------------------------------------
     rng = np.random.default_rng(0)
     x0 = prob.x0.numpy()
     x0s = np.tile(x0[None], (B_BENCH, 1))
@@ -354,112 +589,230 @@ def main():
     settings = SolverSettings(maxiter=1, record_trace=False,
                               parallel_linesearch=False)
 
-    def solve(p, dt):
+    def step(p, dt):
         return solve_batch(p, torch.tensor(x0s, dtype=dt, device=dev),
                            xs_init=xs0.to(dev, dt), us_init=us0.to(dev, dt),
-                           settings=settings)
+                           settings=settings, device=dev)
 
-    plain_calls = (fn.calc_both_lanes_plain, fsc.riccati_backward_lanes_plain,
-                   fsc.trial_rollout_lanes_plain)
-    for f in plain_calls:
-        f.calls = 0
-    ck.reset_counts()
-    sol = solve(p32, torch.float32)
+    reset_counts()
+    sol = step(p32, f32)
     torch.cuda.synchronize()
     launches = {"node": ck.node_calc_both.launches,
                 "riccati": ck.riccati_backward.launches,
                 "rollout": ck.trial_rollout.launches}
-    log(f"[main] f32 B={B_BENCH} T={T}: launches {launches}, plain calls "
-        f"{[f.calls for f in plain_calls]}")
+    log(f"[batch] f32 B={B_BENCH} T={T}: launches {launches}, plain calls "
+        f"{plain_calls()}")
     need(all(v > 0 for v in launches.values()), f"launches {launches}")
-    need(all(f.calls == 0 for f in plain_calls), "plain versions ran")
-    need(sol.cost.shape == (B_BENCH,) and sol.us.shape == (B_BENCH, T, 12),
+    need(not any(plain_calls()), "plain versions ran")
+    need(sol.cost.shape == (B_BENCH,) and sol.us.shape == (B_BENCH, T, nu),
          "solution shapes")
     need(bool(torch.isfinite(sol.cost).all()), "non-finite cost")
-    log(f"[main] f32 cost median {float(sol.cost.median()):.6e}, steps "
+    log(f"[batch] f32 cost median {float(sol.cost.median()):.6e}, steps "
         f"{sorted(set(sol.steplength.tolist()))}")
 
-    # float64: kernel path vs plain path (the plain path is the same solver
-    # with the plain versions, selected here by calling them directly)
-    k64 = solve(p64, torch.float64)
-    saved = (fn.calc_both_lanes, fsc.riccati_backward_lanes,
-             fsc.trial_rollout_lanes)
-    fn.calc_both_lanes = fn.calc_both_lanes_plain
-    fsc.riccati_backward_lanes = fsc.riccati_backward_lanes_plain
-    fsc.trial_rollout_lanes = fsc.trial_rollout_lanes_plain
-    try:
+    # float64: kernel path vs plain path
+    k64 = step(p64, f64)
+    with plain_path():
         t0 = time.perf_counter()
-        ref64 = solve(p64, torch.float64)
+        ref64 = step(p64, f64)
         torch.cuda.synchronize()
         plain64_s = time.perf_counter() - t0
-        plain32_ms = cuda_time(torch, lambda: solve(p32, torch.float32))
-    finally:
-        (fn.calc_both_lanes, fsc.riccati_backward_lanes,
-         fsc.trial_rollout_lanes) = saved
+        plain32_ms = cuda_time(torch, lambda: step(p32, f32))
     need(torch.equal(k64.iter, ref64.iter), "iter differs")
     need(torch.equal(k64.steplength, ref64.steplength),
          "steplength differs")
     rc = float(((k64.cost - ref64.cost).abs() / ref64.cost.abs()).max())
     du = float((k64.us - ref64.us).abs().max())
-    log(f"[main] f64 kernel vs plain: same iter/steplength, cost rtol "
+    log(f"[batch] f64 kernel vs plain: same iter/steplength, cost rtol "
         f"{rc:.3e}, us max abs {du:.3e} (plain f64 solve {plain64_s:.1f} s)")
     need(rc <= 1e-8, f"cost rtol {rc:.3e}")
+    phase_done("batch")
 
-    # ---- 5. timing ------------------------------------------------------
-    kern32_ms = cuda_time(torch, lambda: solve(p32, torch.float32))
+    # ---- 5. b=1 lane ----------------------------------------------------
+    def replan(p, dt, xs_w=xs0, us_w=us0, maxiter=1):
+        return solve(p, xs_w.to(dev, dt), us_w.to(dev, dt),
+                     SolverSettings(maxiter=maxiter, record_trace=False,
+                                    parallel_linesearch=False), device=dev)
+
+    reset_counts()
+    sol1 = replan(p32, f32)
+    torch.cuda.synchronize()
+    launches_b1 = {"node": ck.node_calc_both.launches,
+                   "riccati_b1": ck.riccati_backward_b1.launches,
+                   "rollout_b1": ck.trial_rollout_b1.launches}
+    log(f"[b=1] f32 T={T} cold replan: launches {launches_b1}, plain calls "
+        f"{plain_calls()}")
+    need(all(v > 0 for v in launches_b1.values()),
+         f"b=1 launches {launches_b1}")
+    need(not any(plain_calls()), "plain versions ran")
+    need(sol1.xs.shape == (T + 1, nx) and sol1.us.shape == (T, nu)
+         and sol1.K.shape == (T, nu, prob.state.ndx), "b=1 solution shapes")
+    need(bool(torch.isfinite(sol1.cost)), "non-finite b=1 cost")
+    log(f"[b=1] f32 cold replan: cost {float(sol1.cost):.6e}, steplength "
+        f"{float(sol1.steplength)}, xreg {float(sol1.xreg):.1e}")
+
+    def same(tag, a, b, fields):
+        for fld in fields:
+            need(torch.equal(getattr(a, fld).cpu(), getattr(b, fld).cpu()),
+                 f"{tag}: {fld} differs: {getattr(a, fld).tolist()} vs "
+                 f"{getattr(b, fld).tolist()}")
+
+    k64 = replan(p64, f64)
+    with plain_path():
+        t0 = time.perf_counter()
+        ref64 = replan(p64, f64)
+        torch.cuda.synchronize()
+        plain_b1_s = time.perf_counter() - t0
+    same("b=1 f64 replan", k64, ref64, ("iter", "steplength", "is_feasible"))
+    rc = float((k64.cost - ref64.cost).abs() / ref64.cost.abs())
+    log(f"[b=1] f64 replan kernel vs plain: iter {int(k64.iter)}, steplength"
+        f" {float(k64.steplength)}, feasible {bool(k64.is_feasible)} in "
+        f"both, cost rtol {rc:.3e}, us max abs "
+        f"{float((k64.us - ref64.us).abs().max()):.3e} (plain f64 replan "
+        f"{plain_b1_s:.1f} s)")
+    need(rc <= 1e-8, f"b=1 cost rtol {rc:.3e}")
+
+    s64 = to_dev(torch, small, dev, f64)
+    km = replan(s64, f64, xs0_s, us0_s, maxiter=20)
+    with plain_path():
+        pm = replan(s64, f64, xs0_s, us0_s, maxiter=20)
+    same("b=1 f64 maxiter=20 (reduced walk)", km, pm,
+         ("iter", "converged", "steplength", "xreg", "is_feasible",
+          "diverged"))
+    log(f"[b=1] f64 maxiter=20, reduced walk T={small.T}: iter "
+        f"{int(km.iter)}, converged {bool(km.converged)}, steplength "
+        f"{float(km.steplength)}, xreg {float(km.xreg):.1e} in both, cost "
+        f"rtol {float((km.cost - pm.cost).abs() / pm.cost.abs()):.3e}")
+
+    conv = replan(p64, f64, maxiter=50)
+    need(bool(conv.converged), f"f64 maxiter=50 did not converge at T={T} "
+         f"(iter {int(conv.iter)}, stop {float(conv.stop):.3e})")
+    log(f"[b=1] f64 maxiter=50 at T={T}: converged in {int(conv.iter)} "
+        f"iterations, cost {float(conv.cost):.6e}: the steady-state warm "
+        f"start")
+    xs_w, us_w = conv.xs.cpu(), conv.us.cpu()
+    phase_done("b=1")
+
+    # ---- 6. timing ------------------------------------------------------
+    kern32_ms = cuda_time(torch, lambda: step(p32, f32))
     log(f"[time] solve_batch maxiter=1 B={B_BENCH} T={T} f32: kernel path "
         f"{kern32_ms:.2f} ms ({B_BENCH / kern32_ms * 1e3:.1f} solves/s), "
         f"plain path {plain32_ms:.2f} ms ({B_BENCH / plain32_ms * 1e3:.1f} "
         f"solves/s)  ({card})")
-    xr = xreg
-    ur = xreg.clone()
-    args = (p32.running, inp["xs_l"][0], inp["xs_l"][:-1].contiguous(),
-            inp["us_l"], k_l.contiguous(), K_l.contiguous(),
-            inp["fs"][:-1].contiguous())
+    reset_counts()
+    warm1 = replan(p32, f32, xs_w, us_w)
+    torch.cuda.synchronize()
+    warm_trials = ck.trial_rollout_b1.launches
+    cold_ms = cuda_time(torch, lambda: replan(p32, f32))
+    warm_ms = cuda_time(torch, lambda: replan(p32, f32, xs_w, us_w))
+    log(f"[time] b=1 replan T={T} f32: cold (quasi-static warm start) "
+        f"{cold_ms:.2f} ms, {launches_b1['rollout_b1']} trials; steady "
+        f"state (converged warm start) {warm_ms:.2f} ms, {warm_trials} "
+        f"trials, steplength {float(warm1.steplength)}  ({card})")
+
+    ops = op_counts(torch, prob)
+    log(f"[bound] operations counted on the plain versions: node "
+        f"{ops['node']}, Riccati step {ops['riccati_step']} (terminal "
+        f"{ops['riccati_term']}), rollout step {ops['rollout_step']}")
+    xr, ur = xreg, xreg.clone()
+    ro_args = (p32.running, inp["xs_l"][0], inp["xs_l"][:-1].contiguous(),
+               inp["us_l"], k_l.contiguous(), K_l.contiguous(),
+               inp["fs"][:-1].contiguous())
+    ric_b1, ro_b1 = b1_in["riccati_b1"], b1_in["rollout_b1"]
+    N_lane, N_b1 = inp["x_n"].shape[-1], b1_in["node_b1"][1].shape[-1]
+
+    def tables(seg):
+        d = ck.descriptor(seg, dev, f32)
+        return d.meta, d.robot, d.par
+
     rows = [
-        ("node", "cuda", "crocoddyl_tpu_torch/csrc/node_kernel.cu",
+        ("node", "crocoddyl_tpu_torch/csrc/node_kernel.cu",
          "crocoddyl_tpu/ops/fused_node.py:1477",
          lambda: ck.node_calc_both(inp["knots"], inp["x_n"], inp["u_n"]),
          lambda: fn.calc_both_lanes_plain(inp["knots"], inp["x_n"],
-                                          inp["u_n"])),
-        ("riccati", "cuda", "crocoddyl_tpu_torch/csrc/riccati_kernel.cu",
+                                          inp["u_n"]),
+         (inp["x_n"], inp["u_n"], tables(inp["knots"])),
+         ops["node"] * N_lane, launches["node"]),
+        ("riccati", "crocoddyl_tpu_torch/csrc/riccati_kernel.cu",
          "crocoddyl_tpu/ops/fused_scans.py:536",
          lambda: ck.riccati_backward(derivs_l, dterm_l, inp["fs"], xr, ur),
          lambda: fsc.riccati_backward_lanes_plain(derivs_l, dterm_l,
-                                                  inp["fs"], xr, ur)),
-        ("rollout", "cuda", "crocoddyl_tpu_torch/csrc/rollout_kernel.cu",
+                                                  inp["fs"], xr, ur),
+         (derivs_l, dterm_l.Lx, dterm_l.Lxx, inp["fs"], xr, ur),
+         (ops["riccati_term"] + T * ops["riccati_step"]) * B_BENCH,
+         launches["riccati"]),
+        ("rollout", "crocoddyl_tpu_torch/csrc/rollout_kernel.cu",
          "crocoddyl_tpu/ops/fused_scans.py:708",
-         lambda: ck.trial_rollout(*args, 0.5),
-         lambda: fsc.trial_rollout_lanes_plain(*args, inp["fs"][-1], 0.5)),
+         lambda: ck.trial_rollout(*ro_args, 0.5),
+         lambda: fsc.trial_rollout_lanes_plain(*ro_args, inp["fs"][-1], 0.5),
+         (ro_args[1:], tables(p32.running)),
+         ops["rollout_step"] * T * B_BENCH, launches["rollout"]),
+        ("riccati_b1", "crocoddyl_tpu_torch/csrc/riccati_fused_kernel.cu",
+         "crocoddyl_tpu/ops/fused_scans.py:215",
+         lambda: ck.riccati_backward_b1(*ric_b1, REG_F32, REG_F32),
+         lambda: fsc.riccati_backward_fused_plain(*ric_b1, REG_F32, REG_F32),
+         (ric_b1[0], ric_b1[1].Lx, ric_b1[1].Lxx, ric_b1[2]),
+         ops["riccati_term"] + T * ops["riccati_step"],
+         launches_b1["riccati_b1"]),
+        ("rollout_b1", "crocoddyl_tpu_torch/csrc/rollout_fused_kernel.cu",
+         "crocoddyl_tpu/ops/fused_scans.py:327",
+         lambda: ck.trial_rollout_b1(*ro_b1, 0.5),
+         lambda: fsc.trial_rollout_fused_plain(*ro_b1, 0.5),
+         (ro_b1[1:], tables(p32.running)), ops["rollout_step"] * T,
+         launches_b1["rollout_b1"]),
     ]
     kernels = []
-    for name, route, src, rep, kfn, pfn in rows:
+    for name, src, rep, kfn, pfn, ins, n_ops, n_launch in rows:
         ms, pms = cuda_time(torch, kfn), cuda_time(torch, pfn)
-        log(f"[time] {name} kernel {ms:.3f} ms, plain {pms:.3f} ms "
-            f"(f32, main-path shapes)  ({card})")
-        kernels.append({"name": name, "route": route, "source": src,
-                        "replaces": rep, "launches": launches[name],
+        n_bytes = nbytes(torch, ins, kfn())
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        log(f"[time] {name} kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+            f"{b_ms:.6f} ms by {b_by} ({n_bytes} B, {n_ops} operations; "
+            f"{100 * b_ms / ms:.3f} % of bound) (f32, main-path shapes)  "
+            f"({card})")
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": n_launch,
                         "max_abs_err": errs[name],
                         "max_abs_err_f64": errs64[name], "ms": ms,
-                        "plain_ms": pms})
+                        "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None, "library_note": LIBRARY_NONE})
+    # kernel 1 on the b=1 lane: the T+1 nodes of one problem
+    node_b1 = b1_in["node_b1"]
+    ms = cuda_time(torch, lambda: ck.node_calc_both(*node_b1))
+    pms = cuda_time(torch, lambda: fn.calc_both_lanes_plain(*node_b1))
+    b_ms, b_by = bound_ms(nbytes(torch, node_b1[1:], tables(node_b1[0]),
+                                 ck.node_calc_both(*node_b1)),
+                          ops["node"] * N_b1)
+    log(f"[time] node kernel at N={N_b1} (b=1) {ms:.3f} ms, plain "
+        f"{pms:.3f} ms, bound {b_ms:.6f} ms by {b_by}  ({card})")
+    kernels[0].update(launches_b1=launches_b1["node"], ms_b1=ms,
+                      plain_ms_b1=pms, bound_ms_b1=b_ms, bound_by_b1=b_by,
+                      max_abs_err_b1=errs["node_b1"])
+    phase_done("timing")
 
-    # ---- 6. profile -----------------------------------------------------
-    prof = profile_step(torch, lambda: solve(p32, torch.float32))
-    if prof is None:
-        log(f"[profile] the trace holds no device time: not measured "
-            f"({card})")
-    else:
+    # ---- 7. profile -----------------------------------------------------
+    for tag, fname, fn_step, keys in (
+            ("batch step", "profile.json", lambda: step(p32, f32),
+             ("node", "riccati", "rollout")),
+            ("b=1 cold replan", "profile_b1.json", lambda: replan(p32, f32),
+             ("node", "riccati_b1", "rollout_b1"))):
+        prof = profile_step(torch, fn_step, keys)
+        if prof is None:
+            log(f"[profile] {tag}: the trace holds no device time: not "
+                f"measured ({card})")
+            continue
         prof["card"] = card
-        with open(os.path.join(OUT, "profile.json"), "w") as f:
+        with open(os.path.join(OUT, fname), "w") as f:
             json.dump(prof, f, indent=1)
-        k = prof["kernel_ms"]
-        log(f"[profile] one f32 step: node {k['node']:.3f} ms, riccati "
-            f"{k['riccati']:.3f} ms, rollout {k['rollout']:.3f} ms, glue "
-            f"{prof['glue_ms']:.3f} ms ({prof['glue_events']} device events),"
-            f" device {prof['device_ms']:.3f} ms of wall "
-            f"{prof['wall_ms']:.3f} ms, idle {prof['idle_ms']:.3f} ms "
+        kms = ", ".join(f"{k} {v:.3f} ms" for k, v in
+                        prof["kernel_ms"].items())
+        log(f"[profile] one f32 {tag}: {kms}, glue {prof['glue_ms']:.3f} ms "
+            f"({prof['glue_events']} device events), device "
+            f"{prof['device_ms']:.3f} ms of wall {prof['wall_ms']:.3f} ms, "
+            f"idle {prof['idle_ms']:.3f} ms "
             f"({100 * prof['idle_share']:.1f} %), {prof['stream_syncs']} "
             f"stream syncs, {prof['h2d_copies']} H2D copies  ({card})")
+    phase_done("profile")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,35 +26,34 @@ from ...dynamics.model import JointType
 from ...ops import fused_node as _fn
 from ...ops import fused_scans as _fsc
 from ...utils.struct import tree_map
-from .fddp import Solution, SolverSettings
+from .fddp import Solution, SolverSettings, cast, resolve_device
 
 
 def supports(problem, settings: SolverSettings) -> bool:
     s = settings
     if (s.box or not s.feasibility_driven or s.parallel_linesearch
-            or s.record_trace):
+            or s.record_trace or s.ms_chunk):
         return False
     return (len(problem.segments) == 1 and _fn.supports(problem.segments[0])
             and _fn.supports(problem.terminal))
-
-
-def _cast(tree, like):
-    return tree_map(lambda l: l.to(device=like.device, dtype=like.dtype)
-                    if l.is_floating_point() else l.to(like.device), tree)
 
 
 def solve_batch(problem, x0s, xs_init: Optional[torch.Tensor] = None,
                 us_init: Optional[torch.Tensor] = None,
                 settings: SolverSettings = SolverSettings(),
                 is_feasible: bool = False,
-                reginit: Optional[float] = None) -> Solution:
+                reginit: Optional[float] = None, device=None) -> Solution:
     """Solve B instances of ``problem``, one per row of x0s (B, nx), from a
     shared or per-problem warm start.  Returns a Solution whose leaves carry
-    a leading B axis.  Semantics == JAX ``solve_batch``."""
+    a leading B axis.  Semantics == JAX ``solve_batch``.  The problem, x0s
+    and the warm start move to ``device`` (default: the CUDA device) in the
+    dtype of x0s."""
     s = settings
     if not supports(problem, s):
         raise ValueError("unsupported configuration for solve_batch")
-    problem = _cast(problem, x0s)
+    dev = resolve_device(device)
+    x0s = x0s.to(dev)
+    problem = cast(problem, dev, x0s.dtype)
     seg = problem.segments[0]
     st = problem.state
     T = problem.T
@@ -77,8 +76,8 @@ def solve_batch(problem, x0s, xs_init: Optional[torch.Tensor] = None,
 
     # the node-kernel launch covers T running knots + the terminal knot as
     # a dt=0 node (core/problem.py:171-184 convention)
-    term = problem.terminal.replace(dt=torch.zeros_like(problem.terminal.dt))
-    knots = tree_map(lambda r, t: torch.cat([r, t[None]]), seg, term)
+    knots = problem.knots
+    term = tree_map(lambda l: l[T], knots)
     term_lanes = _fn.lane_params(tree_map(lambda l: l[None], term), B)
     u_term = torch.zeros((1, nu, B), dtype=dt, device=dev)
 

@@ -1,0 +1,84 @@
+// Single-problem Riccati backward pass: the whole reversed-time loop in one
+// CTA (the b=1 MPC replan's backward pass and every ladder probe).
+//
+// Replaces: crocoddyl_tpu/ops/fused_scans.py::riccati_backward_fused (the
+// Pallas kernel that runs the T-loop in a fori inside one grid step, with
+// the (Vx, Vxx, failed) carry in VMEM).  Per step the math and the failure
+// flag of fused_scans.py:106-136: riccati_cta of riccati_pass.cuh, shared
+// with the batched kernel (riccati_kernel.cu).
+//
+// Bound on this card: latency.  The launch is one CTA on one of 132 SMs,
+// and its T = 108 steps are dependent; each step is ~0.3 MFLOP of 36x36
+// products split over the CTA plus a 12-row Cholesky on one warp, with ~10
+// barriers.  Its bytes (~2.4 MB in f32 for the whole pass) would take under
+// a microsecond at 3.35 TB/s.
+//
+// Design: one CTA of 512 threads (twice the batched kernel's 256: at b=1
+// this CTA is the whole launch, so more threads shorten each product phase;
+// 512 keeps 128 registers a thread).  Inputs are contiguous single-problem
+// arrays (T, ...): riccati_cta reads them with element stride 1 and time
+// stride = the step's element count, problem index 0 of 1.  xreg and ureg
+// come by value; ``failed`` is one byte.
+#include "riccati_pass.cuh"
+
+namespace croc {
+
+constexpr int kRiccatiB1Threads = 512;
+
+template <class T>
+__global__ void __launch_bounds__(kRiccatiB1Threads)
+riccati_b1_kernel(int Tn, int ndx, int nu, LaneStrides S, const T* Fx,
+                  const T* Fu, const T* Lx, const T* Lu, const T* Lxx,
+                  const T* Lxu, const T* Luu, const T* LxT, const T* LxxT,
+                  const T* fs, T xreg, T ureg, T* Vx_o, T* Vxx_o, T* Qu_o,
+                  T* k_o, T* K_o, T* Quuk_o, unsigned char* failed_o) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int bad;
+  riccati_cta<T>(Tn, 1, 0, ndx, nu, S, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT,
+                 LxxT, fs, xreg, ureg, Vx_o, Vxx_o, Qu_o, k_o, K_o, Quuk_o,
+                 failed_o, reinterpret_cast<T*>(smem_raw), bad);
+}
+
+template <class T>
+int launch_riccati_b1(int Tn, int ndx, int nu, const T* Fx, const T* Fu,
+                      const T* Lx, const T* Lu, const T* Lxx, const T* Lxu,
+                      const T* Luu, const T* LxT, const T* LxxT, const T* fs,
+                      double xreg, double ureg, T* Vx, T* Vxx, T* Qu, T* k,
+                      T* K, T* Quuk, unsigned char* failed, void* stream) {
+  if (nu > 32) return (int)cudaErrorInvalidValue;  // one warp factors Quu
+  size_t smem = riccati_smem(ndx, nu, sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(
+      riccati_b1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // contiguous (T, elems...) inputs: time stride = elements per step
+  const long long step[10] = {
+      (long long)ndx * ndx, (long long)ndx * nu, ndx, nu,
+      (long long)ndx * ndx, (long long)ndx * nu, (long long)nu * nu,
+      0, 0, ndx};
+  LaneStrides S;
+  for (int k = 0; k < 10; ++k) {
+    S.ts[k] = step[k];
+    S.es[k] = 1;
+  }
+  riccati_b1_kernel<T><<<1, kRiccatiB1Threads, smem, (cudaStream_t)stream>>>(
+      Tn, ndx, nu, S, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, T(xreg),
+      T(ureg), Vx, Vxx, Qu, k, K, Quuk, failed);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace croc
+
+#define CROC_RICCATI_B1(NAME, T)                                             \
+  extern "C" int NAME(int Tn, int ndx, int nu, const T* Fx, const T* Fu,     \
+                      const T* Lx, const T* Lu, const T* Lxx, const T* Lxu,  \
+                      const T* Luu, const T* LxT, const T* LxxT,             \
+                      const T* fs, double xreg, double ureg, T* Vx, T* Vxx,  \
+                      T* Qu, T* k, T* K, T* Quuk, unsigned char* failed,     \
+                      void* stream) {                                        \
+    return croc::launch_riccati_b1<T>(Tn, ndx, nu, Fx, Fu, Lx, Lu, Lxx, Lxu, \
+                                      Luu, LxT, LxxT, fs, xreg, ureg, Vx,    \
+                                      Vxx, Qu, k, K, Quuk, failed, stream);  \
+  }
+CROC_RICCATI_B1(croc_riccati_b1_f32, float)
+CROC_RICCATI_B1(croc_riccati_b1_f64, double)

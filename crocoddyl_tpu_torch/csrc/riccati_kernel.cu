@@ -3,11 +3,8 @@
 //
 // Replaces: crocoddyl_tpu/ops/fused_scans.py::riccati_backward_lanes (the
 // Pallas kernel whose grid steps over reversed t with the (Vx, Vxx, failed)
-// carry in VMEM scratch).  Per step: the Q-terms, Quu += ureg·I, Jacobi
-// equilibration and a 12x12 Cholesky, the gains K, k and Quuk, then
-// Vxx = sym(Qxx − Qxu·K) + xreg·I and Vx = Qx + Kᵀ·Quuk − 2·Kᵀ·Qu + Vxx·f.
-// The failure flag keeps fused_scans.py:391-409 exactly: a NaN in the
-// Cholesky (the square root of a negative pivot) or |V| ≥ 1e30 / NaN.
+// carry in VMEM scratch).  The per-step math and the failure flag are
+// riccati_cta of riccati_pass.cuh, shared with the single-problem kernel.
 //
 // Bound on this card: latency of the T dependent steps, then memory: each
 // step reads ~28 KB (f64) of derivatives per problem and writes Vxx and K.
@@ -18,24 +15,12 @@
 // the lane axis unit-stride: the solver hands the node kernel's (…, (T+1)·B)
 // outputs over as strided (T, …, B) views, with no copy.
 //
-// Design: B CTAs of 256 threads; Vxx and the step's Fx, Fu, Lxx, Lxu, Luu
-// blocks sit in dynamic shared memory (~59 KB in f64, above the 48 KB
-// default, so the launcher raises the limit).  Threads split the 36x36
-// products; warp 0 factors the equilibrated 12x12 Quu (lane i owns row i,
-// one column per step), and the 37 right-hand sides (Qxuᵀ | Qu) are solved
-// one per thread.  No library Cholesky and no info code: NaN propagation is
-// the failure signal.
-#include <cuda_runtime.h>
-#include <math.h>
+// Design: B CTAs of 256 threads, CTA b runs riccati_cta for problem b;
+// Vxx and the step's blocks sit in dynamic shared memory (~59 KB in f64,
+// above the 48 KB default, so the launcher raises the limit).
+#include "riccati_pass.cuh"
 
 namespace croc {
-
-// Strides of the inputs Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs: value
-// (t, e) of problem b sits at p[t·ts + e·es + b], e the row-major index of
-// the element axes.
-struct LaneStrides {
-  long long ts[10], es[10];
-};
 
 template <class T>
 __global__ void __launch_bounds__(256)
@@ -44,202 +29,12 @@ riccati_kernel(int Tn, int B, int ndx, int nu, LaneStrides S, const T* Fx, const
                const T* Luu, const T* LxT, const T* LxxT, const T* fs,
                const T* xreg_b, const T* ureg_b, T* Vx_o, T* Vxx_o, T* Qu_o,
                T* k_o, T* K_o, T* Quuk_o, unsigned char* failed_o) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int b = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
-  const int n2 = ndx * ndx, nxu = ndx * nu, nr = ndx + 1;
-  T* Vxx = sm;            T* Vx = Vxx + n2;
-  T* sFx = Vx + ndx;      T* Qxx = sFx + n2;     T* tmp = Qxx + n2;
-  T* sFu = tmp + n2;      T* Qxu = sFu + nxu;    T* FuV = Qxu + nxu;
-  T* Quu = FuV + nxu;     T* Qx = Quu + nu * nu; T* Qu = Qx + ndx;
-  T* f = Qu + nu;         T* Lc = f + ndx;       T* ds = Lc + nu * nu;
-  T* Y = ds + nu;         T* Qk = Y + nu * nr;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int bad;
-  const T xreg = xreg_b[b], ureg = ureg_b[b];
-  auto at = [&](const T* p, int k, long t, long e) {
-    return p[t * S.ts[k] + e * S.es[k] + b];
-  };
-
-  // ---- terminal: Vxx = LxxT + xreg·I, Vx = LxT + Vxx·f_T -----------------
-  if (tid == 0) bad = 0;
-  for (int e = tid; e < n2; e += nth)
-    Vxx[e] = at(LxxT, 8, 0, e) + (e / ndx == e % ndx ? xreg : T(0));
-  for (int e = tid; e < ndx; e += nth) f[e] = at(fs, 9, Tn, e);
-  __syncthreads();
-  for (int i = tid; i < ndx; i += nth) {
-    T s = at(LxT, 7, 0, i);
-    for (int j = 0; j < ndx; ++j) s += Vxx[i * ndx + j] * f[j];
-    Vx[i] = s;
-  }
-  __syncthreads();
-  for (int e = tid; e < n2; e += nth) {
-    Vxx_o[((long)Tn * n2 + e) * B + b] = Vxx[e];
-    if (!(fabs(Vxx[e]) < T(1e30))) bad = 1;
-  }
-  for (int i = tid; i < ndx; i += nth) {
-    Vx_o[((long)Tn * ndx + i) * B + b] = Vx[i];
-    if (!(fabs(Vx[i]) < T(1e30))) bad = 1;
-  }
-
-  for (int t = Tn - 1; t >= 0; --t) {
-    __syncthreads();
-    // ---- load the step's blocks (Lxx → Qxx, Lxu → Qxu, Luu → Quu, ...)
-    for (int e = tid; e < n2; e += nth) {
-      sFx[e] = at(Fx, 0, t, e);
-      Qxx[e] = at(Lxx, 4, t, e);
-    }
-    for (int e = tid; e < nxu; e += nth) {
-      sFu[e] = at(Fu, 1, t, e);
-      Qxu[e] = at(Lxu, 5, t, e);
-    }
-    for (int e = tid; e < nu * nu; e += nth) Quu[e] = at(Luu, 6, t, e);
-    for (int e = tid; e < ndx; e += nth) {
-      Qx[e] = at(Lx, 2, t, e);
-      f[e] = at(fs, 9, t, e);
-    }
-    for (int e = tid; e < nu; e += nth) Qu[e] = at(Lu, 3, t, e);
-    __syncthreads();
-    // tmp = Fxᵀ·Vxx, FuV = Fuᵀ·Vxx (nu x ndx)
-    for (int e = tid; e < n2 + nxu; e += nth) {
-      const bool x = e < n2;
-      const int i = x ? e / ndx : (e - n2) / ndx, j = (x ? e : e - n2) % ndx;
-      const T* A = x ? sFx : sFu;
-      const int lda = x ? ndx : nu;
-      T s = 0;
-      for (int kk = 0; kk < ndx; ++kk) s += A[kk * lda + i] * Vxx[kk * ndx + j];
-      (x ? tmp : FuV)[i * ndx + j] = s;
-    }
-    __syncthreads();
-    // Qxx += tmp·Fx, Qxu += tmp·Fu, Quu += FuV·Fu + ureg·I, Qx, Qu
-    for (int e = tid; e < n2 + nxu + nu * nu + ndx + nu; e += nth) {
-      if (e < n2) {
-        int i = e / ndx, j = e % ndx;
-        T s = 0;
-        for (int kk = 0; kk < ndx; ++kk) s += tmp[i * ndx + kk] * sFx[kk * ndx + j];
-        Qxx[e] += s;
-      } else if (e < n2 + nxu) {
-        int r = e - n2, i = r / nu, j = r % nu;
-        T s = 0;
-        for (int kk = 0; kk < ndx; ++kk) s += tmp[i * ndx + kk] * sFu[kk * nu + j];
-        Qxu[r] += s;
-      } else if (e < n2 + nxu + nu * nu) {
-        int r = e - n2 - nxu, i = r / nu, j = r % nu;
-        T s = 0;
-        for (int kk = 0; kk < ndx; ++kk) s += FuV[i * ndx + kk] * sFu[kk * nu + j];
-        Quu[r] += s + (i == j ? ureg : T(0));
-      } else if (e < n2 + nxu + nu * nu + ndx) {
-        int i = e - n2 - nxu - nu * nu;
-        T s = 0;
-        for (int kk = 0; kk < ndx; ++kk) s += sFx[kk * ndx + i] * Vx[kk];
-        Qx[i] += s;
-      } else {
-        int i = e - n2 - nxu - nu * nu - ndx;
-        T s = 0;
-        for (int kk = 0; kk < ndx; ++kk) s += sFu[kk * nu + i] * Vx[kk];
-        Qu[i] += s;
-      }
-    }
-    __syncthreads();
-    // ---- equilibrated Cholesky of Quu (warp 0: lane i owns row i) ----------
-    if (tid < 32) {
-      if (tid < nu) {
-        T q = Quu[tid * nu + tid];
-        ds[tid] = sqrt(q > T(1e-30) ? q : T(1e-30));
-      }
-      __syncwarp();
-      for (int j = 0; j < nu; ++j) {
-        if (tid == j) {
-          T s = Quu[j * nu + j] / ds[j] / ds[j];
-          for (int kk = 0; kk < j; ++kk) s -= Lc[j * nu + kk] * Lc[j * nu + kk];
-          T dj = sqrt(s);
-          Lc[j * nu + j] = dj;
-          if (isnan(dj)) bad = 1;
-        }
-        __syncwarp();
-        if (tid > j && tid < nu) {
-          T v = Quu[tid * nu + j] / ds[tid] / ds[j];
-          for (int kk = 0; kk < j; ++kk) v -= Lc[tid * nu + kk] * Lc[j * nu + kk];
-          v = v / Lc[j * nu + j];
-          Lc[tid * nu + j] = v;
-          if (isnan(v)) bad = 1;
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    // ---- K = Quu⁻¹·Qxuᵀ and k = Quu⁻¹·Qu, one right-hand side per thread
-    for (int c = tid; c < nr; c += nth) {
-      for (int i = 0; i < nu; ++i) {
-        T s = (c < ndx ? Qxu[c * nu + i] : Qu[i]) / ds[i];
-        for (int kk = 0; kk < i; ++kk) s -= Lc[i * nu + kk] * Y[kk * nr + c];
-        Y[i * nr + c] = s / Lc[i * nu + i];
-      }
-      for (int i = nu - 1; i >= 0; --i) {
-        T s = Y[i * nr + c];
-        for (int kk = i + 1; kk < nu; ++kk) s -= Lc[kk * nu + i] * Y[kk * nr + c];
-        Y[i * nr + c] = s / Lc[i * nu + i];
-      }
-      for (int i = 0; i < nu; ++i) Y[i * nr + c] /= ds[i];
-    }
-    __syncthreads();
-    // Quuk = Quu·k
-    for (int i = tid; i < nu; i += nth) {
-      T s = 0;
-      for (int j = 0; j < nu; ++j) s += Quu[i * nu + j] * Y[j * nr + ndx];
-      Qk[i] = s;
-    }
-    __syncthreads();
-    // ---- Vxx = sym(Qxx − Qxu·K) + xreg·I; Vx = Qx + Kᵀ·Quuk − 2·Kᵀ·Qu ----
-    for (int e = tid; e < n2; e += nth) {
-      int i = e / ndx, j = e % ndx;
-      T a = Qxx[i * ndx + j], c = Qxx[j * ndx + i];
-      for (int kk = 0; kk < nu; ++kk) {
-        a -= Qxu[i * nu + kk] * Y[kk * nr + j];
-        c -= Qxu[j * nu + kk] * Y[kk * nr + i];
-      }
-      Vxx[e] = T(0.5) * (a + c) + (i == j ? xreg : T(0));
-    }
-    for (int i = tid; i < ndx; i += nth) {
-      T s = Qx[i];
-      T s1 = 0, s2 = 0;
-      for (int kk = 0; kk < nu; ++kk) {
-        s1 += Y[kk * nr + i] * Qk[kk];
-        s2 += Y[kk * nr + i] * Qu[kk];
-      }
-      tmp[i] = s + s1 - T(2) * s2;
-    }
-    __syncthreads();
-    for (int i = tid; i < ndx; i += nth) {
-      T s = 0;
-      for (int j = 0; j < ndx; ++j) s += Vxx[i * ndx + j] * f[j];
-      Vx[i] = tmp[i] + s;
-    }
-    __syncthreads();
-    // ---- outputs and the |V| ≥ 1e30 / NaN check ---------------------------
-    for (int e = tid; e < n2; e += nth) {
-      Vxx_o[((long)t * n2 + e) * B + b] = Vxx[e];
-      if (!(fabs(Vxx[e]) < T(1e30))) bad = 1;
-    }
-    for (int i = tid; i < ndx; i += nth) {
-      Vx_o[((long)t * ndx + i) * B + b] = Vx[i];
-      if (!(fabs(Vx[i]) < T(1e30))) bad = 1;
-    }
-    for (int e = tid; e < nu * ndx; e += nth)
-      K_o[((long)t * nu * ndx + e) * B + b] = Y[(e / ndx) * nr + e % ndx];
-    for (int i = tid; i < nu; i += nth) {
-      Qu_o[((long)t * nu + i) * B + b] = Qu[i];
-      k_o[((long)t * nu + i) * B + b] = Y[i * nr + ndx];
-      Quuk_o[((long)t * nu + i) * B + b] = Qk[i];
-    }
-  }
-  __syncthreads();
-  if (tid == 0) failed_o[b] = bad ? 1 : 0;
-}
-
-inline size_t riccati_smem(int ndx, int nu, size_t elem) {
-  size_t n = 4 * (size_t)ndx * ndx + ndx + 3 * (size_t)ndx * nu + nu * nu +
-             ndx + nu + ndx + nu * nu + nu + nu * (ndx + 1) + nu;
-  return n * elem;
+  const int b = blockIdx.x;
+  riccati_cta<T>(Tn, B, b, ndx, nu, S, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT,
+                 LxxT, fs, xreg_b[b], ureg_b[b], Vx_o, Vxx_o, Qu_o, k_o, K_o,
+                 Quuk_o, failed_o, reinterpret_cast<T*>(smem_raw), bad);
 }
 
 template <class T>

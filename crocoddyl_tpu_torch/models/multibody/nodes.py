@@ -58,6 +58,14 @@ class RigidBodyNode(PyTreeNode):
         xn, c = fn.lane_calc_primal(fn.lane_params(one, 1), xl, ul)
         return xn[:, 0], c[0]
 
+    def calc_terminal(self, x):
+        """Terminal cost at x: the cost rate at u = 0, undiscounted
+        (nodes.py:201-205).  Evaluated as the lane primal of this node as
+        a dt=0 knot, as the solvers evaluate the terminal trial cost."""
+        term = self.replace(dt=torch.zeros_like(self.dt))
+        fn, one, xl, ul = term._lanes(x, x.new_zeros(self.nu))
+        return fn.lane_calc_primal(fn.lane_params(one, 1), xl, ul)[1][0]
+
     def calc_both(self, x, u):
         """(NodeDerivs, xnext, cost) of one node."""
         fn, one, xl, ul = self._lanes(x, u)

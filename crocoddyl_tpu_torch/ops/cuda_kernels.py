@@ -1,9 +1,10 @@
-"""Build, bind and launch the three CUDA kernels of the main path.
+"""Build, bind and launch the CUDA kernels of the port.
 
-``csrc/*.cu`` are compiled at first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` into one shared library with a plain C
-interface (``crocoddyl_tpu_torch/build/kernels/``), loaded with ctypes.
-Nothing here touches nvcc or the library at import time.
+``csrc/*.cu`` are compiled at first use, one ``nvcc -gencode
+arch=compute_90a,code=sm_90a -c`` per source, all started together, and
+linked into one shared library with a plain C interface
+(``crocoddyl_tpu_torch/build/kernels/``), loaded with ctypes.  Nothing here
+touches nvcc or the library at import time.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current CUDA
@@ -11,6 +12,11 @@ stream, raises if the launch reports an error, and adds one to its
 ``launches`` count.  The node and rollout kernels read a descriptor built
 once per stacked segment from the dataclasses (see ``descriptor``); its
 layout is mirrored in csrc/node_math.cuh.
+
+Kernels: node linearization (``node_calc_both``), the batched Riccati pass
+(``riccati_backward``) and trial rollout (``trial_rollout``) of the batch
+lane, and the single-problem Riccati pass (``riccati_backward_b1``) and
+trial rollout (``trial_rollout_b1``) of the b=1 lane.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -72,20 +78,7 @@ def build(verbose: bool = False) -> float:
         os.makedirs(BUILD_DIR, exist_ok=True)
         so = os.path.join(BUILD_DIR, f"libcroc_kernels_{h.hexdigest()[:16]}.so")
         if not os.path.exists(so):
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cus = [s for s in _sources() if s.endswith(".cu")]
-            cmd = ([_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose
-                                             else []) + ["-o", tmp] + cus)
-            try:
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                _build_log = res.stdout + res.stderr
-                if res.returncode != 0:
-                    raise RuntimeError("nvcc failed:\n" + _build_log)
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+            _build_log = _compile(so, verbose)
         lib = ctypes.CDLL(so)
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for t in ("f32", "f64"):
@@ -98,8 +91,47 @@ def build(verbose: bool = False) -> float:
             fn = getattr(lib, f"croc_rollout_{t}")
             fn.argtypes = [I, I] + [P] * 9 + [D] + [P] * 6 + [P]
             fn.restype = I
+            fn = getattr(lib, f"croc_riccati_b1_{t}")
+            fn.argtypes = [I, I, I] + [P] * 10 + [D, D] + [P] * 7 + [P]
+            fn.restype = I
+            fn = getattr(lib, f"croc_rollout_b1_{t}")
+            fn.argtypes = [I, I] + [P] * 9 + [D] + [P] * 5 + [P]
+            fn.restype = I
         _lib = lib
     return time.perf_counter() - t0
+
+
+def _compile(so, verbose):
+    """One ``nvcc -c`` per source, all running at once, then one link into
+    ``so``; returns the compilers' output."""
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        flags = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+        cus = [s for s in _sources() if s.endswith(".cu")]
+        objs = [os.path.join(tmpdir, os.path.basename(s) + ".o") for s in cus]
+        procs = [subprocess.Popen(flags + ["-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(cus, objs)]
+        log, failed = "", []
+        for s, proc in zip(cus, procs):
+            out = proc.communicate()[0]
+            log += f"== {os.path.basename(s)}\n{out}"
+            if proc.returncode != 0:
+                failed.append(os.path.basename(s))
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        res = subprocess.run([_nvcc()] + NVCC_FLAGS[:2] + ["-shared", "-o",
+                                                            tmp] + objs,
+                             capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + log)
+        os.replace(tmp, so)
+        return log
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
 
 
 def build_log() -> str:
@@ -397,8 +429,80 @@ def trial_rollout(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha):
 trial_rollout.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Kernel 4: single-problem Riccati backward pass
+# ---------------------------------------------------------------------------
+
+def riccati_backward_b1(derivs, dterm, fs, xreg, ureg):
+    """CUDA twin of fused_scans.riccati_backward_fused_plain: contiguous
+    single-problem inputs, derivs leaves (T, ...), dterm Lx (ndx,) / Lxx
+    (ndx, ndx), fs (T+1, ndx); xreg and ureg are scalars (a float or a 0-d
+    tensor), passed by value."""
+    T, ndx = derivs.Fx.shape[0], fs.shape[1]
+    nu = derivs.Lu.shape[1]
+    dt, dev = fs.dtype, fs.device
+    d = derivs
+    ins = dict(Fx=d.Fx, Fu=d.Fu, Lx=d.Lx, Lu=d.Lu, Lxx=d.Lxx, Lxu=d.Lxu,
+               Luu=d.Luu, LxT=dterm.Lx, LxxT=dterm.Lxx, fs=fs)
+    _check("riccati_backward_b1", ins, dt, dev, dict(
+        Fx=(T, ndx, ndx), Fu=(T, ndx, nu), Lx=(T, ndx), Lu=(T, nu),
+        Lxx=(T, ndx, ndx), Lxu=(T, ndx, nu), Luu=(T, nu, nu), LxT=(ndx,),
+        LxxT=(ndx, ndx), fs=(T + 1, ndx)))
+
+    def e(*s):
+        return torch.empty(s, dtype=dt, device=dev)
+    Vx, Vxx = e(T + 1, ndx), e(T + 1, ndx, ndx)
+    Qu, k, K, Quuk = e(T, nu), e(T, nu), e(T, nu, ndx), e(T, nu)
+    failed = torch.empty((), dtype=torch.uint8, device=dev)
+    _launch("croc_riccati_b1", dt, dev, T, ndx, nu,
+            *[_ptr(t) for t in ins.values()],
+            ctypes.c_double(float(xreg)), ctypes.c_double(float(ureg)),
+            *[_ptr(t) for t in (Vx, Vxx, Qu, k, K, Quuk, failed)])
+    riccati_backward_b1.launches += 1
+    return Vx, Vxx, Qu, k, K, Quuk, failed.bool()
+
+
+riccati_backward_b1.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: single-problem trial rollout
+# ---------------------------------------------------------------------------
+
+def trial_rollout_b1(seg, x0, xs, us, k, K, fs, alpha):
+    """CUDA twin of fused_scans.trial_rollout_fused_plain: seg holds the T
+    running knots (no terminal knot), x0 (nx,), xs (T, nx), us/k (T, nu),
+    K (T, nu, ndx), fs (T, ndx), all contiguous; alpha a float."""
+    dt, dev = x0.dtype, x0.device
+    desc = descriptor(seg, dev, dt)
+    T = us.shape[0]
+    nx, ndx, nu = desc.nx, desc.ndx, desc.nu
+    if T != desc.K:
+        raise ValueError(f"{T} steps for {desc.K} knots")
+    _check("trial_rollout_b1", dict(x0=x0, xs=xs, us=us, k=k, K=K, fs=fs),
+           dt, dev, dict(x0=(nx,), xs=(T, nx), us=(T, nu), k=(T, nu),
+                         K=(T, nu, ndx), fs=(T, ndx)))
+
+    def e(*s):
+        return torch.empty(s, dtype=dt, device=dev)
+    xs_try, us_try, x_last, cost = e(T, nx), e(T, nu), e(nx), e()
+    failed = torch.empty((), dtype=torch.uint8, device=dev)
+    _launch("croc_rollout_b1", dt, dev,
+            T, desc.prim + 2 * ndx, _ptr(desc.meta), _ptr(desc.robot),
+            _ptr(desc.par), *[_ptr(t) for t in (x0, xs, us, k, K, fs)],
+            ctypes.c_double(float(alpha)),
+            *[_ptr(t) for t in (xs_try, us_try, x_last, cost, failed)])
+    trial_rollout_b1.launches += 1
+    return xs_try, us_try, x_last, cost, failed.bool()
+
+
+trial_rollout_b1.launches = 0
+
+WRAPPERS = (node_calc_both, riccati_backward, trial_rollout,
+            riccati_backward_b1, trial_rollout_b1)
+
+
 def reset_counts():
-    """Zero the launch counts of the three wrappers."""
-    riccati_backward.launches = 0
-    node_calc_both.launches = 0
-    trial_rollout.launches = 0
+    """Zero the launch counts of the kernel wrappers."""
+    for w in WRAPPERS:
+        w.launches = 0

@@ -1,12 +1,16 @@
-"""Batched Riccati backward pass and trial rollout in lane layout —
-kernels 2 and 3 of the port.
+"""Riccati backward pass and trial rollout — kernels 2 to 5 of the port.
 
-Port of ``riccati_backward_lanes`` and ``trial_rollout_lanes``
-(crocoddyl_tpu/ops/fused_scans.py:350-720).  Problems ride the trailing
-lane axis B; time is the leading axis.  The functions named ``*_plain`` are
-the plain PyTorch versions (a loop over t of the JAX step functions); the
-wrappers send CUDA tensors to the kernels of csrc/riccati_kernel.cu and
-csrc/rollout_kernel.cu and CPU tensors to the plain versions.
+Batch lane (kernels 2 and 3): ``riccati_backward_lanes`` and
+``trial_rollout_lanes`` (crocoddyl_tpu/ops/fused_scans.py:350-720), problems
+on the trailing lane axis B, time on the leading axis.  b=1 lane (kernels 4
+and 5): ``riccati_backward_fused`` and ``trial_rollout_fused``
+(fused_scans.py:57-331), one problem, time on the leading axis.
+
+The functions named ``*_plain`` are the plain PyTorch versions (a loop over
+t of the JAX step functions; the b=1 ones are the lane loops at B=1 with
+the lane axis squeezed).  The wrappers send CUDA tensors to the kernels of
+csrc/riccati_kernel.cu, rollout_kernel.cu, riccati_fused_kernel.cu and
+rollout_fused_kernel.cu and CPU tensors to the plain versions.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from ..dynamics.model import JointType
 from ..utils.struct import tree_map
 from .fused_node import (_lane_state_diff, lane_calc_primal, lane_integrate,
                          lane_params, lchol, lcho_solve, leye, lmm_chunk,
-                         lmv, lT)
+                         lmv, lT, supports)
 
 
 def _riccati_step(Vx_n, Vxx_n, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, f, xreg, ureg):
@@ -56,13 +60,8 @@ def _riccati_step(Vx_n, Vxx_n, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, f, xreg, ureg):
     return Vx, Vxx, Qu, kvec, K, Quuk, bad
 
 
-def riccati_backward_lanes_plain(derivs_l, dterm_l, fs_l, xreg, ureg):
-    """Plain PyTorch version of the Riccati kernel.  Ports
-    fused_scans.py:350-453 (its lax.scan path): derivs_l leaves (T, ..., B),
-    dterm_l Lx (ndx, B) / Lxx (ndx, ndx, B), fs_l (T+1, ndx, B), xreg/ureg
-    (B,).  Returns (Vx (T+1,ndx,B), Vxx (T+1,ndx,ndx,B), Qu (T,nu,B),
-    k (T,nu,B), K (T,nu,ndx,B), Quuk (T,nu,B), failed (B,) bool)."""
-    riccati_backward_lanes_plain.calls += 1
+def _riccati_loop(derivs_l, dterm_l, fs_l, xreg, ureg):
+    """The reversed-time loop of the plain Riccati versions (lane layout)."""
     T = derivs_l.Fx.shape[0]
     ndx = fs_l.shape[1]
     VxxT = dterm_l.Lxx + xreg[None, None] * leye(ndx, dterm_l.Lxx[0])
@@ -81,6 +80,16 @@ def riccati_backward_lanes_plain(derivs_l, dterm_l, fs_l, xreg, ureg):
     return st(Vx), st(Vxx), st(Qu), st(kv), st(K), st(Quuk), failed
 
 
+def riccati_backward_lanes_plain(derivs_l, dterm_l, fs_l, xreg, ureg):
+    """Plain PyTorch version of the Riccati kernel.  Ports
+    fused_scans.py:350-453 (its lax.scan path): derivs_l leaves (T, ..., B),
+    dterm_l Lx (ndx, B) / Lxx (ndx, ndx, B), fs_l (T+1, ndx, B), xreg/ureg
+    (B,).  Returns (Vx (T+1,ndx,B), Vxx (T+1,ndx,ndx,B), Qu (T,nu,B),
+    k (T,nu,B), K (T,nu,ndx,B), Quuk (T,nu,B), failed (B,) bool)."""
+    riccati_backward_lanes_plain.calls += 1
+    return _riccati_loop(derivs_l, dterm_l, fs_l, xreg, ureg)
+
+
 riccati_backward_lanes_plain.calls = 0
 
 
@@ -93,14 +102,8 @@ def riccati_backward_lanes(derivs_l, dterm_l, fs_l, xreg, ureg):
     return riccati_backward_lanes_plain(derivs_l, dterm_l, fs_l, xreg, ureg)
 
 
-def trial_rollout_lanes_plain(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, fsT_l,
-                              alpha):
-    """Plain PyTorch version of the rollout kernel.  Ports
-    fused_scans.py:554-640 (its lax.scan path): seg leaves (T, ...) are the
-    knot parameters, read by knot; x0_l (nx, B); xs_l/us_l/k_l/K_l/fs_l
-    (T, ..., B); alpha a float.  Returns (xs_try (T,nx,B), us_try (T,nu,B),
-    x_last (nx,B), cost (B,), failed (B,) bool)."""
-    trial_rollout_lanes_plain.calls += 1
+def _rollout_loop(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha):
+    """The time loop of the plain rollout versions (lane layout)."""
     st = seg.state_
     nq, nv = st.nq, st.nv
     has_ff = JointType(st.model.joint_types[0]) == JointType.FREE_FLYER
@@ -123,6 +126,17 @@ def trial_rollout_lanes_plain(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, fsT_l,
     return torch.stack(xs_try), torch.stack(us_try), xnext, cost, failed
 
 
+def trial_rollout_lanes_plain(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, fsT_l,
+                              alpha):
+    """Plain PyTorch version of the rollout kernel.  Ports
+    fused_scans.py:554-640 (its lax.scan path): seg leaves (T, ...) are the
+    knot parameters, read by knot; x0_l (nx, B); xs_l/us_l/k_l/K_l/fs_l
+    (T, ..., B); alpha a float.  Returns (xs_try (T,nx,B), us_try (T,nu,B),
+    x_last (nx,B), cost (B,), failed (B,) bool)."""
+    trial_rollout_lanes_plain.calls += 1
+    return _rollout_loop(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha)
+
+
 trial_rollout_lanes_plain.calls = 0
 
 
@@ -138,5 +152,83 @@ def trial_rollout_lanes(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, fsT_l, alpha):
                                      fsT_l, alpha)
 
 
+# ---------------------------------------------------------------------------
+# b=1 lane: one problem, kernels 4 and 5
+# ---------------------------------------------------------------------------
+
+def _lane(a):
+    return a[..., None]
+
+
+def riccati_backward_fused_plain(derivs, dterm, fs, xreg, ureg):
+    """Plain PyTorch version of the single-problem Riccati kernel.  Ports
+    fused_scans.py:57-219 (the step math of :106-136): derivs leaves
+    (T, ...), dterm Lx (ndx,) / Lxx (ndx, ndx), fs (T+1, ndx), xreg/ureg
+    scalars.  Returns (Vx (T+1,ndx), Vxx (T+1,ndx,ndx), Qu (T,nu), k (T,nu),
+    K (T,nu,ndx), Quuk (T,nu), failed () bool) — the outputs of
+    fddp._backward_pass (non-box)."""
+    riccati_backward_fused_plain.calls += 1
+
+    def reg(r):
+        return torch.as_tensor(r, dtype=fs.dtype, device=fs.device).reshape(1)
+    out = _riccati_loop(tree_map(_lane, derivs), tree_map(_lane, dterm),
+                        _lane(fs), reg(xreg), reg(ureg))
+    return tuple(a[..., 0] for a in out)
+
+
+riccati_backward_fused_plain.calls = 0
+
+
+def riccati_backward_fused(derivs, dterm, fs, xreg, ureg):
+    """Single-problem Riccati backward pass (see the plain version for
+    shapes); CUDA tensors go to csrc/riccati_fused_kernel.cu."""
+    if fs.is_cuda:
+        from . import cuda_kernels
+        return cuda_kernels.riccati_backward_b1(derivs, dterm, fs, xreg, ureg)
+    return riccati_backward_fused_plain(derivs, dterm, fs, xreg, ureg)
+
+
+def trial_rollout_fused_plain(seg, x0, xs, us, k, K, fs, alpha):
+    """Plain PyTorch version of the single-problem rollout kernel.  Ports
+    fused_scans.py:227-331 (the step math of :252-265): seg leaves (T, ...)
+    are the T running knots; x0 (nx,); xs (T or T+1, nx) and fs (T or T+1,
+    ndx), of which the first T rows are read; us/k (T, nu); K (T, nu, ndx);
+    alpha a float.  Returns (xs_try (T,nx), us_try (T,nu), x_last (nx,),
+    cost (), failed () bool); the terminal node stays with the caller."""
+    trial_rollout_fused_plain.calls += 1
+    T = us.shape[0]
+    out = _rollout_loop(seg, _lane(x0), _lane(xs[:T]), _lane(us), _lane(k),
+                        _lane(K), _lane(fs[:T]), alpha)
+    return tuple(a[..., 0] for a in out)
+
+
+trial_rollout_fused_plain.calls = 0
+
+
+def trial_rollout_fused(seg, x0, xs, us, k, K, fs, alpha):
+    """One single-problem FDDP trial rollout at step length ``alpha`` (see
+    the plain version for shapes); CUDA tensors go to
+    csrc/rollout_fused_kernel.cu."""
+    T = us.shape[0]
+    if x0.is_cuda:
+        from . import cuda_kernels
+        return cuda_kernels.trial_rollout_b1(seg, x0, xs[:T], us, k, K,
+                                             fs[:T], alpha)
+    return trial_rollout_fused_plain(seg, x0, xs, us, k, K, fs, alpha)
+
+
+def supports_problem(problem, settings) -> bool:
+    """Gate of the b=1 kernels (fused_scans.py:334-340): no control bounds,
+    one segment whose node structure the node kernel covers."""
+    return (not settings.box and len(problem.segments) == 1
+            and supports(problem.segments[0]))
+
+
+PLAIN = (riccati_backward_lanes_plain, trial_rollout_lanes_plain,
+         riccati_backward_fused_plain, trial_rollout_fused_plain)
+
 __all__ = ["NodeDerivs", "riccati_backward_lanes", "trial_rollout_lanes",
-           "riccati_backward_lanes_plain", "trial_rollout_lanes_plain"]
+           "riccati_backward_lanes_plain", "trial_rollout_lanes_plain",
+           "riccati_backward_fused", "trial_rollout_fused",
+           "riccati_backward_fused_plain", "trial_rollout_fused_plain",
+           "supports_problem"]

@@ -7,10 +7,17 @@ arrays, and compares results.  Not a test module itself.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import os
+import subprocess
+import sys
+import tempfile
+import types
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -20,6 +27,7 @@ torch.set_num_threads(1)
 
 FEET = ["LF_FOOT", "RF_FOOT", "LH_FOOT", "RH_FOOT"]
 B = 3
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,6 +61,91 @@ def torch_walk():
     fac = QuadrupedGaitFactory(m, FEET, default_q=q0)
     return fac.walking_problem(x0, 0.25, 0.15, 1e-2,
                                step_knots=3, support_knots=1)
+
+
+@contextlib.contextmanager
+def no_persistent_cache():
+    """Within the block, JAX compiles without reading or writing the
+    persistent compilation cache of tests/conftest.py: XLA:CPU has crashed
+    (de)serializing cached executables in these tests' long worker
+    processes (tests/run_suite.sh).  JAX offers no per-call switch, so the
+    cache object is set aside and put back."""
+    from jax._src import compilation_cache as cc
+    with cc._cache_initialized_mutex:
+        saved = cc._cache, cc._cache_initialized
+        cc._cache, cc._cache_initialized = None, True
+    try:
+        yield
+    finally:
+        with cc._cache_initialized_mutex:
+            cc._cache, cc._cache_initialized = saved
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_persistent_cache():
+    """Imported by the tests/test_torch_*.py modules that call JAX: their
+    JAX references compile outside the persistent cache
+    (``no_persistent_cache``)."""
+    with no_persistent_cache():
+        yield
+
+
+_SOLVE_CHILD = """
+import dataclasses, sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import crocoddyl_tpu as ct
+import crocoddyl_tpu_torch as ctt
+from crocoddyl_tpu.core.solvers import fddp_batch
+from tests._torch_parity import jax_walk, np_, t64, to_port
+entry, maxiter, path = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+prob, xs0, us0, x0s = jax_walk()
+kw = dict(maxiter=maxiter, record_trace=False, parallel_linesearch=False)
+port = to_port(prob)
+if entry == "solve":
+    ref = ct.solve(prob, xs_init=xs0, us_init=us0,
+                   settings=ct.SolverSettings(**kw))
+    out = ctt.solve(port, t64(xs0), t64(us0), ctt.SolverSettings(**kw),
+                    device="cpu")
+else:
+    ref = fddp_batch.solve_batch(prob, x0s, xs_init=xs0, us_init=us0,
+                                 settings=ct.SolverSettings(**kw))
+    out = ctt.solve_batch(port, t64(x0s), xs_init=t64(xs0),
+                          us_init=t64(us0), settings=ctt.SolverSettings(**kw),
+                          device="cpu")
+leaves = {}
+for tag, sol in (("ref", ref), ("out", out)):
+    for f in dataclasses.fields(sol):
+        if getattr(sol, f.name) is not None:
+            leaves[tag + "." + f.name] = np_(getattr(sol, f.name))
+np.savez(path, **leaves)
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def solve_pair(entry, maxiter):
+    """(JAX reference, port) solutions of the reduced walk from the
+    quasi-static warm start (sequential line search, no trace: the port's
+    scope) as namespaces of numpy leaves: ``entry`` "solve" runs
+    ``ct.solve`` and the port's ``solve(device="cpu")`` from x0,
+    "solve_batch" both ``solve_batch`` from the B=3 x0s.  Both run in a
+    fresh Python process: XLA:CPU has crashed compiling or (de)serializing
+    the multi-MB solver programs late in long test workers
+    (tests/run_suite.sh), and the port's plain CPU solve is the longest
+    torch work of the suite."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "solutions.npz")
+        res = subprocess.run(
+            [sys.executable, "-c", _SOLVE_CHILD, entry, str(maxiter), path],
+            cwd=REPO, capture_output=True, text=True, timeout=1200)
+        if res.returncode != 0:
+            raise RuntimeError(f"{entry} failed:\n{res.stderr[-4000:]}")
+        with np.load(path) as z:
+            return tuple(types.SimpleNamespace(**{
+                k.split(".", 1)[1]: z[k] for k in z.files
+                if k.startswith(tag + ".")}) for tag in ("ref", "out"))
 
 
 def describe(obj, path=""):

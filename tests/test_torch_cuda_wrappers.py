@@ -27,8 +27,7 @@ bad = sorted(k for k in sys.modules
 assert not bad, bad
 from crocoddyl_tpu_torch.ops import cuda_kernels as ck
 assert ck._lib is None
-assert (ck.node_calc_both.launches, ck.riccati_backward.launches,
-        ck.trial_rollout.launches) == (0, 0, 0)
+assert [w.launches for w in ck.WRAPPERS] == [0] * 5
 print(len(names))
 """
 
@@ -114,4 +113,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                          e(T, 36, B, dtype=torch.float64), 0.5)
     assert (ck.node_calc_both.launches, ck.riccati_backward.launches,
             ck.trial_rollout.launches) == (0, 0, 0)
+    assert ck._lib is None
+
+
+def test_b1_wrappers_refuse_cpu_tensors():
+    """The single-problem wrappers (kernels 4 and 5) take CUDA tensors
+    only; on CPU tensors they raise before building or launching."""
+    from crocoddyl_tpu_torch.core.action import NodeDerivs
+    from crocoddyl_tpu_torch.ops import cuda_kernels as ck
+    prob = torch_walk()
+    T = prob.T
+    e = torch.zeros
+    d = NodeDerivs(Fx=e(T, 36, 36), Fu=e(T, 36, 12), Lx=e(T, 36),
+                   Lu=e(T, 12), Lxx=e(T, 36, 36), Lxu=e(T, 36, 12),
+                   Luu=e(T, 12, 12))
+    dT = NodeDerivs(Fx=None, Fu=None, Lx=e(36), Lu=None, Lxx=e(36, 36),
+                    Lxu=None, Luu=None)
+    with pytest.raises(ValueError, match="cpu"):
+        ck.riccati_backward_b1(d, dT, e(T + 1, 36), 1e-9, 1e-9)
+    f64 = dict(dtype=torch.float64)
+    with pytest.raises(ValueError, match="cpu"):
+        ck.trial_rollout_b1(prob.running, e(37, **f64), e(T, 37, **f64),
+                            e(T, 12, **f64), e(T, 12, **f64),
+                            e(T, 12, 36, **f64), e(T, 36, **f64), 0.5)
+    assert [w.launches for w in ck.WRAPPERS] == [0] * 5
     assert ck._lib is None

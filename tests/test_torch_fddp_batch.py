@@ -9,24 +9,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from tests._torch_parity import jax_walk, max_rel, np_, t64, to_port
+from tests._torch_parity import _no_persistent_cache  # noqa: F401
+from tests._torch_parity import jax_walk, max_rel, np_, solve_pair, to_port
 
 
 @pytest.fixture(scope="module")
 def solved():
-    import crocoddyl_tpu as ct
-    from crocoddyl_tpu.core.solvers import fddp_batch as jfb
-    from crocoddyl_tpu_torch import SolverSettings, solve_batch
-    prob, xs0, us0, x0s = jax_walk()
-    st_j = ct.SolverSettings(maxiter=1, record_trace=False,
-                             parallel_linesearch=False)
-    ref = jfb.solve_batch(prob, x0s, xs_init=xs0, us_init=us0,
-                          settings=st_j)
-    st_t = SolverSettings(maxiter=1, record_trace=False,
-                          parallel_linesearch=False)
-    out = solve_batch(to_port(prob), t64(x0s), xs_init=t64(xs0),
-                      us_init=t64(us0), settings=st_t)
-    return ref, out
+    return solve_pair("solve_batch", 1)
 
 
 def test_same_decisions(solved):
@@ -57,7 +46,7 @@ def test_unsupported_configs_gate():
     assert fddp_batch.supports(prob, SolverSettings(
         maxiter=1, record_trace=False, parallel_linesearch=False))
     for bad in (dict(box=True), dict(parallel_linesearch=True),
-                dict(record_trace=True)):
+                dict(record_trace=True), dict(ms_chunk=4)):
         kw = dict(maxiter=1, record_trace=False, parallel_linesearch=False)
         kw.update(bad)
         assert not fddp_batch.supports(prob, SolverSettings(**kw))

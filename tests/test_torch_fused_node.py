@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_parity import _no_persistent_cache  # noqa: F401
 from tests._torch_parity import jax_node_case, max_rel, np_, t64, to_port
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(

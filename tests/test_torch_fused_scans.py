@@ -16,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests._torch_parity import _no_persistent_cache  # noqa: F401
 from tests._torch_parity import (jax_node_case, jax_walk, max_rel, np_, t64,
                                  to_port)
 
@@ -108,3 +109,36 @@ def test_scan_wrappers_take_plain_versions_on_cpu(riccati_case):
     assert tfs.riccati_backward_lanes_plain.calls == before + 1
     assert cuda_kernels.riccati_backward.launches == 0
     assert cuda_kernels.trial_rollout.launches == 0
+
+
+def test_b1_wrappers_take_plain_versions_on_cpu(riccati_case):
+    """The single-problem wrappers send CPU tensors to their plain versions
+    (kernels 4 and 5 never launch), and those equal the lane plain versions
+    at B=1."""
+    from crocoddyl_tpu_torch.ops import cuda_kernels
+    from crocoddyl_tpu_torch.ops import fused_scans as tfs
+    from crocoddyl_tpu_torch.utils.struct import tree_map
+    _, (td, tterm), fs, _ = riccati_case
+    one = tree_map(lambda a: a[..., 0].contiguous(), (td, tterm))
+    reg = torch.full((1,), 1e-9, dtype=torch.float64)
+    before = tfs.riccati_backward_fused_plain.calls
+    out = tfs.riccati_backward_fused(*one, t64(fs[..., 0]), 1e-9, 1e-9)
+    assert tfs.riccati_backward_fused_plain.calls == before + 1
+    lane = tfs.riccati_backward_lanes_plain(
+        *tree_map(lambda a: a[..., :1], (td, tterm)), t64(fs[..., :1]), reg,
+        reg)
+    for a, b in zip(lane, out):
+        assert torch.equal(a[..., 0], b)
+    prob = to_port(jax_walk()[0])
+    T = prob.T
+    x0 = prob.x0
+    xs = x0[None].expand(T + 1, -1).contiguous()
+    us = torch.zeros(T, prob.nu, dtype=torch.float64)
+    before = tfs.trial_rollout_fused_plain.calls
+    ro = tfs.trial_rollout_fused(prob.running, x0, xs, us, out[3], out[4],
+                                 t64(fs[..., 0]), 0.5)
+    assert tfs.trial_rollout_fused_plain.calls == before + 1
+    assert ro[0].shape == (T, 37) and ro[3].shape == () and ro[4].dtype == \
+        torch.bool
+    assert cuda_kernels.riccati_backward_b1.launches == 0
+    assert cuda_kernels.trial_rollout_b1.launches == 0

@@ -8,6 +8,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests._torch_parity import _no_persistent_cache  # noqa: F401
 from tests._torch_parity import jax_walk, leaves_of, np_, t64, to_port, torch_walk
 
 
