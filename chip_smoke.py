@@ -8,10 +8,15 @@ Phases (any failure exits non-zero; each prints its seconds):
    sm_90a, one nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card:
    the batch lane's node, Riccati and rollout kernels in float64 at the
-   reduced walk and at bench size and in float32 at bench size; the b=1
-   lane's Riccati and rollout kernels (and the node kernel at the T+1 nodes
-   of one problem) in float64 and, at the warm start, float32 against the
-   float64 plain version, with a forced Riccati failure;
+   reduced walk (B=3: a CTA whose second warp lies past B) and at bench
+   size and in float32 at bench size; the b=1 lane's Riccati and rollout
+   kernels (and the node kernel at the T+1 nodes of one problem) in
+   float64 at the reduced walk and at T=108 and, at the warm start,
+   float32 against the float64 plain version; a forced Riccati failure,
+   and forced rollout failures (one lane's gaps, and in one extra b=1
+   call all gaps, scaled by 1e35) flagged by kernel and plain alike; the
+   rollout kernels' registers, stack and spills (``ptxas -v``) and kernel
+   3's launch shape at B=256;
 4. batch lane: ``solve_batch(maxiter=1)`` on the ANYmal walk (T=108,
    B=256) through the kernels in float32 (launch counts, finite costs),
    then the float64 kernel path against the float64 plain path (same
@@ -245,20 +250,26 @@ def check_kernels(torch, prob, B, dev, dt, tag, seed=0, warm=None,
     names = ("Vx", "Vxx", "Qu", "k", "K", "Quuk")
     errs["riccati"] = _agree(tag, "riccati", names, kr[:-1], pr[:-1],
                              None if rr is None else rr[:-1], ~pr[-1])
-    # rollout at alpha = 0.5 with the plain gains
+    # rollout at alpha = 0.5 with the plain gains; the last lane's gaps are
+    # scaled by 1e35, so that lane must fail in the kernel and the plain
+    # version alike
     ureg[0] = reg
     _, _, _, k_l, K_l, _, _ = fsc.riccati_backward_lanes_plain(*ric_in)
+    fs_r = inp["fs"][:-1].clone()
+    fs_r[..., B - 1] *= 1e35
     args = (prob.running, inp["xs_l"][0], inp["xs_l"][:-1].contiguous(),
-            inp["us_l"], k_l.contiguous(), K_l.contiguous(),
-            inp["fs"][:-1].contiguous())
+            inp["us_l"], k_l.contiguous(), K_l.contiguous(), fs_r)
     ko = ck.trial_rollout(*args, 0.5)
     po = fsc.trial_rollout_lanes_plain(*args, inp["fs"][-1], 0.5)
     ro = (fsc.trial_rollout_lanes_plain(*up(args + (inp["fs"][-1],)), 0.5)
           if f32 else None)
     torch.cuda.synchronize()
-    need(bool((ko[-1] == po[-1]).all()), f"rollout failure flags ({tag})")
+    need(bool((ko[-1] == po[-1]).all()), f"rollout failure flags ({tag}): "
+         f"kernel {ko[-1].tolist()}, plain {po[-1].tolist()}")
+    need(bool(po[-1][B - 1]), f"rollout forced failure not flagged ({tag})")
     ok = ~po[-1]
-    log(f"  [{tag}] rollout: {int(ok.sum())}/{B} lanes without failure")
+    log(f"  [{tag}] rollout: {int(ok.sum())}/{B} lanes without failure, "
+        f"forced failure of lane {B - 1} flagged by kernel and plain")
     names = ("xs_try", "us_try", "x_last", "cost")
     errs["rollout"] = _agree(tag, "rollout", names, ko[:-1], po[:-1],
                              None if ro is None else ro[:-1], ok)
@@ -326,11 +337,36 @@ def check_b1_kernels(torch, prob, dev, dt, tag, seed=0, warm=None, reg=1e-9):
     need(bool(ko[-1]) == bool(po[-1]) and not bool(po[-1]),
          f"rollout b=1 failure flags ({tag}): kernel {bool(ko[-1])}, plain "
          f"{bool(po[-1])}")
+    fs_bad = ro_args[6] * 1e35
+    kf = ck.trial_rollout_b1(*ro_args[:6], fs_bad, 0.5)[-1]
+    pf = fsc.trial_rollout_fused_plain(*ro_args[:6], fs_bad, 0.5)[-1]
+    torch.cuda.synchronize()
+    need(bool(kf) and bool(pf), f"rollout b=1 forced failure (gaps x 1e35) "
+         f"not flagged ({tag}): kernel {bool(kf)}, plain {bool(pf)}")
+    log(f"  [{tag}] rollout b=1: forced failure flagged by kernel and plain")
     names = ("xs_try", "us_try", "x_last", "cost")
     errs["rollout_b1"] = _agree(tag, "rollout b=1", names, ko[:-1], po[:-1],
                                 None if ro is None else ro[:-1])
     return errs, dict(node_b1=node_args, riccati_b1=ric_args,
                       rollout_b1=ro_args)
+
+
+def ptxas_lines(build_log, kernels):
+    """``ptxas -v``'s registers, stack, spills and shared memory of each
+    kernel whose (mangled) name holds one of ``kernels``."""
+    out, name = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k + ("<double>" if f"{len(k)}{k}IdE" in mangled
+                              else "<float>")
+                         for k in kernels if f"{len(k)}{k}I" in mangled),
+                        None)
+        elif name and ("spill" in line or "Used" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+            if "Used" in line:
+                name = None
+    return out
 
 
 def count_ops(torch, fn):
@@ -560,16 +596,27 @@ def main():
     with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
         f.write(ck.build_log())
     log(f"[build] {secs:.1f} s  ({card})")
+    for line in ptxas_lines(ck.build_log(), ("rollout_kernel",
+                                             "rollout_b1_kernel")):
+        log(f"[build] {line}")
     phase_done("build")
 
     # ---- 3. kernels against their plain versions -------------------------
     small, xs0_s, us0_s = build_walk(torch, 3, 1)
     check_kernels(torch, to_dev(torch, small, dev, f64), 3, dev, f64,
                   "f64 reduced")
+    check_b1_kernels(torch, to_dev(torch, small, dev, f64), dev, f64,
+                     "f64 b=1 reduced")
     prob, xs0, us0 = build_walk(torch, 25, 2)
     T, nx, nu = prob.T, prob.state.nx, prob.nu
     p64 = to_dev(torch, prob, dev, f64)
     p32 = to_dev(torch, prob, dev, f32)
+    for dt in (f32, f64):
+        ctas, threads, smem = ck.rollout_launch_shape(prob.running, B_BENCH,
+                                                      dt)
+        log(f"[kernels] rollout kernel launch at B={B_BENCH} ({dt}): {ctas} "
+            f"CTAs of {threads // 32} warps (one problem per warp), {smem} B "
+            f"of dynamic shared memory per CTA")
     errs64 = check_kernels(torch, p64, B_BENCH, dev, f64, "f64 bench")[0]
     errs, inp, derivs_l, dterm_l, xreg, k_l, K_l = check_kernels(
         torch, p32, B_BENCH, dev, f32, "f32 bench", warm=(xs0, us0),

@@ -22,8 +22,10 @@
 // lane width.  Intermediates go to a wrapper-allocated node-last scratch
 // tensor: the primal's Lay plus the TanLay below; the only per-thread local
 // arrays are one residual row (nd ≤ 64 values) and a few 6x6 blocks.
-// Spreading a node over a warp (one thread per dof column) is the first
-// thing a later PR does about the latency.
+// The primal is node_math.cuh's node_primal on a team of one (Team1), the
+// same code the rollout kernels run on a warp.  Spreading a node's
+// tangents over a warp (one thread per dof column) is the first thing a
+// later PR does about the latency.
 #include "node_math.cuh"
 
 namespace croc {
@@ -251,7 +253,7 @@ __device__ void acceleration_tangent(const Desc<T>& d, const T* kp,
                                      const Lay& L, const TanLay& G, Arr<T> W) {
   const int nv = d.nv(), ndx = 2 * nv, nd = ndx + d.nu(), nc = d.nc();
   Arr<T> DA = W.at(G.da);
-  cho_solve(W.at(L.M), nv, DA, nd, nd);
+  cho_solve(Team1{}, W.at(L.M), nv, DA, nd, nd);
   if (!nc) return;
   Arr<T> DL = W.at(G.dl), JC = W.at(L.Jc), XS = W.at(L.X);
   for (int ci = 0; ci < d.ncon(); ++ci) {
@@ -289,7 +291,7 @@ __device__ void acceleration_tangent(const Desc<T>& d, const T* kp,
       DL.st(r * nd + col, s * mr);
     }
   }
-  cho_solve(W.at(L.Sk), nc, DL, nd, nd);
+  cho_solve(Team1{}, W.at(L.Sk), nc, DL, nd, nd);
   for (int a = 0; a < nv; ++a)
     for (int col = 0; col < nd; ++col) {
       T s = DA.ld(a * nd + col);
@@ -384,9 +386,9 @@ __device__ void node_one(int n, int N, int B, const Desc<T>& d, const T* par,
   // ---- primal: kinematics, KKT dynamics, residuals, Euler step -----------
   for (int i = 0; i < nx; ++i) X.st(i, x[(long)i * N + n]);
   for (int i = 0; i < nu; ++i) U.st(i, u[(long)i * N + n]);
-  node_primal(d, kp, W);
+  node_primal(Team1{}, d, kp, W);
   for (int i = 0; i < nx; ++i) out(xnext, i) = XN.ld(i);
-  const T rate = cost_rate(d, kp, R, true, AR, ARR);
+  const T rate = cost_rate(Team1{}, d, kp, R, true, AR, ARR);
   cost[n] = dt == T(0) ? rate : dt * rate;
 
   // ---- closed-form tangents -------------------------------------------------

@@ -1,17 +1,19 @@
 // Per-node spatial algebra shared by the node-linearization kernel
-// (node_kernel.cu) and the trial-rollout kernel (rollout_kernel.cu).
+// (node_kernel.cu) and the trial-rollout kernels (rollout_kernel.cu,
+// rollout_fused_kernel.cu, through rollout_step.cuh).
 //
 // Ports the lane math of crocoddyl_tpu/ops/fused_node.py (lane_kin,
 // lane_mass_matrix, lane_bias_forces, the Contact3D KKT solve, the cost
 // residuals, lane_integrate, _lane_state_diff) and the SE(3) Jacobians of
-// the chain rule (ljac_se3_right, ljac_se3_right_inv) for ONE node per
-// thread, templated on the scalar (float or double).
+// the chain rule (ljac_se3_right, ljac_se3_right_inv) for ONE node,
+// templated on the scalar (float or double) and, for the node primal, on a
+// Team: the lanes that compute one node together (see "Teams" below).
 //
-// Memory: per-node arrays live in a wrapper-allocated node-last scratch
-// tensor (element i of node n at base[i * N + n]), so neighbouring threads
-// touch neighbouring addresses and no per-thread local array scales with
-// the card's resident threads.  Only 3- and 6-vectors, 3x3 blocks and a
-// few 6x6 blocks are kept in registers (or spill to local memory).
+// Memory: per-node arrays live in a workspace W read through Arr<T>: a
+// wrapper-allocated node-last scratch tensor (element i of node n at
+// base[i * N + n]) for the node kernel, whose team is one thread, or the
+// team's slice of shared memory (stride 1) for the rollout kernels.  Only
+// 3- and 6-vectors, 3x3 blocks and a few 6x6 blocks are kept in registers.
 //
 // The descriptor layout (meta ints, robot floats, packed knot parameters)
 // is built by crocoddyl_tpu_torch/ops/cuda_kernels.py; keep both in sync.
@@ -345,7 +347,7 @@ template <class S> __device__ inline M6<S> se3_adjoint(const TF<S>& X) {
 
 enum MetaHeader {
   H_NJ = 0, H_NV, H_NQ, H_FF, H_NF, H_NCON, H_NCOST, H_P, H_NU, H_FULLACT,
-  H_DT, H_ARM, H_NR, H_NC, H_LEN = 16
+  H_DT, H_ARM, H_NR, H_NC, H_NLEV, H_LEN = 16
 };
 enum JointType { J_FF = 0, J_REV = 1, J_PRIS = 2 };
 enum CostType { C_STATE = 0, C_CONTROL, C_COM, C_FTRANS, C_FVEL, C_CONE, C_FORCE };
@@ -355,54 +357,120 @@ enum ActType { A_QUAD = 0, A_WQUAD, A_BARRIER, A_WBARRIER };
 enum CostField { CF_TYPE = 0, CF_ACT, CF_IDX, CF_W, CF_ON, CF_REF, CF_AW,
                  CF_ALB, CF_AUB, CF_NR, CF_ROW, CF_LEN = 12 };
 
+// The header's sizes and the tables' offsets are read once, at
+// construction, and kept in registers: the tables may sit in shared memory
+// beside the workspace, and the compiler cannot keep a value loaded from
+// there across the workspace's stores.
 template <class T> struct Desc {
   const int* m;      // meta ints
   const T* rb;       // robot floats
-  __device__ int nj() const { return m[H_NJ]; }
-  __device__ int nv() const { return m[H_NV]; }
-  __device__ int nq() const { return m[H_NQ]; }
-  __device__ bool ff() const { return m[H_FF] != 0; }
-  __device__ int nf() const { return m[H_NF]; }
-  __device__ int ncon() const { return m[H_NCON]; }
-  __device__ int ncost() const { return m[H_NCOST]; }
-  __device__ int P() const { return m[H_P]; }
-  __device__ int nu() const { return m[H_NU]; }
-  __device__ int nr() const { return m[H_NR]; }
-  __device__ int nc() const { return m[H_NC]; }
+  int nj_, nv_, nq_, nf_, ncon_, ncost_, P_, nu_, nr_, nc_, nlev_;
+  int o_mask, o_fpar, o_con, o_cost, o_dofj, o_depth;
+  bool ff_;
+  __device__ Desc(const int* meta, const T* robot) : m(meta), rb(robot) {
+    nj_ = m[H_NJ]; nv_ = m[H_NV]; nq_ = m[H_NQ]; ff_ = m[H_FF] != 0;
+    nf_ = m[H_NF]; ncon_ = m[H_NCON]; ncost_ = m[H_NCOST]; P_ = m[H_P];
+    nu_ = m[H_NU]; nr_ = m[H_NR]; nc_ = m[H_NC]; nlev_ = m[H_NLEV];
+    o_mask = H_LEN + 4 * nj_;
+    o_fpar = o_mask + nj_ * nv_;
+    o_con = o_fpar + nf_;
+    o_cost = o_con + 4 * ncon_;
+    o_dofj = o_cost + CF_LEN * ncost_;
+    o_depth = o_dofj + nv_;
+  }
+  __device__ int nj() const { return nj_; }
+  __device__ int nv() const { return nv_; }
+  __device__ int nq() const { return nq_; }
+  __device__ bool ff() const { return ff_; }
+  __device__ int nf() const { return nf_; }
+  __device__ int ncon() const { return ncon_; }
+  __device__ int ncost() const { return ncost_; }
+  __device__ int P() const { return P_; }
+  __device__ int nu() const { return nu_; }
+  __device__ int nr() const { return nr_; }
+  __device__ int nc() const { return nc_; }
   __device__ int jt(int j) const { return m[H_LEN + 4 * j]; }
   __device__ int jpar(int j) const { return m[H_LEN + 4 * j + 1]; }
   __device__ int voff(int j) const { return m[H_LEN + 4 * j + 2]; }
-  __device__ bool amask(int i, int dof) const { return m[H_LEN + 4 * nj() + i * nv() + dof] != 0; }
-  __device__ int fpar(int f) const { return m[H_LEN + 4 * nj() + nj() * nv() + f]; }
-  __device__ int con(int c, int k) const {
-    return m[H_LEN + 4 * nj() + nj() * nv() + nf() + 4 * c + k];
-  }
-  __device__ int cost(int c, int k) const {
-    return m[H_LEN + 4 * nj() + nj() * nv() + nf() + 4 * ncon() + CF_LEN * c + k];
-  }
+  __device__ bool amask(int i, int dof) const { return m[o_mask + i * nv_ + dof] != 0; }
+  __device__ int fpar(int f) const { return m[o_fpar + f]; }
+  __device__ int con(int c, int k) const { return m[o_con + 4 * c + k]; }
+  __device__ int cost(int c, int k) const { return m[o_cost + CF_LEN * c + k]; }
   // the joint that owns dof k
-  __device__ int dofj(int k) const {
-    return m[H_LEN + 4 * nj() + nj() * nv() + nf() + 4 * ncon() + CF_LEN * ncost() + k];
-  }
+  __device__ int dofj(int k) const { return m[o_dofj + k]; }
+  // depth of joint j in the tree (the base is 0); nlev() levels in all
+  __device__ int nlev() const { return nlev_; }
+  __device__ int depth(int j) const { return m[o_depth + j]; }
   // robot floats: jp_R | jp_p | axis | mass | com | inertia | fp_R | fp_p |
   // gravity | kkt_damping
   __device__ const T* jpR(int j) const { return rb + 9 * j; }
-  __device__ const T* jpp(int j) const { return rb + 9 * nj() + 3 * j; }
-  __device__ const T* axis(int j) const { return rb + 12 * nj() + 3 * j; }
-  __device__ T mass(int j) const { return rb[15 * nj() + j]; }
-  __device__ const T* com(int j) const { return rb + 16 * nj() + 3 * j; }
-  __device__ const T* inertia(int j) const { return rb + 19 * nj() + 9 * j; }
-  __device__ const T* fpR(int f) const { return rb + 28 * nj() + 9 * f; }
-  __device__ const T* fpp(int f) const { return rb + 28 * nj() + 9 * nf() + 3 * f; }
-  __device__ const T* gravity() const { return rb + 28 * nj() + 12 * nf(); }
-  __device__ T damping() const { return rb[28 * nj() + 12 * nf() + 3]; }
+  __device__ const T* jpp(int j) const { return rb + 9 * nj_ + 3 * j; }
+  __device__ const T* axis(int j) const { return rb + 12 * nj_ + 3 * j; }
+  __device__ T mass(int j) const { return rb[15 * nj_ + j]; }
+  __device__ const T* com(int j) const { return rb + 16 * nj_ + 3 * j; }
+  __device__ const T* inertia(int j) const { return rb + 19 * nj_ + 9 * j; }
+  __device__ const T* fpR(int f) const { return rb + 28 * nj_ + 9 * f; }
+  __device__ const T* fpp(int f) const { return rb + 28 * nj_ + 9 * nf_ + 3 * f; }
+  __device__ const T* gravity() const { return rb + 28 * nj_ + 12 * nf_; }
+  __device__ T damping() const { return rb[28 * nj_ + 12 * nf_ + 3]; }
 };
+
+// ---------------------------------------------------------------------------
+// Teams: the lanes that compute one node primal together
+// ---------------------------------------------------------------------------
+//
+// A Team gives lane() in [0, size()), sync() (a barrier of the team that
+// also orders its memory accesses), sum(x) (the team's sum, the same value
+// on every lane) and bcast(x) (lane 0's x on every lane).  Every lane must
+// reach every sync, sum and bcast: control flow around them is uniform.
+// Each phase below splits its work over the lanes by its own structure and
+// ends in a sync.  Team1 is one lane: the node kernel's thread, or one lane
+// of a larger team running a small piece alone; with it, every phase runs
+// its items in order and computes what a serial loop would.  WarpTeam is
+// the 32 lanes of a warp.  The host build of the rollout
+// (tests/test_torch_fused_scans.py) brings a team of std::threads.
+struct Team1 {
+  __device__ int lane() const { return 0; }
+  __device__ int size() const { return 1; }
+  __device__ void sync() const {}
+  template <class S> __device__ S sum(S x) const { return x; }
+  template <class S> __device__ S bcast(S x) const { return x; }
+};
+
+#ifdef __CUDACC__
+struct WarpTeam {
+  __device__ int lane() const { return threadIdx.x & 31; }
+  __device__ int size() const { return 32; }
+  __device__ void sync() const { __syncwarp(); }
+  // butterfly: lanes i and i^o add the same two values, so every lane ends
+  // with the same bits
+  template <class S> __device__ S sum(S x) const {
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+  }
+  template <class S> __device__ S bcast(S x) const { return __shfl_sync(0xffffffffu, x, 0); }
+};
+#endif
+
+// The lane order reversed: loops that run beside a lane-0 or low-lane task
+// start from the last lane.
+template <class Team> __device__ inline int rlane(const Team& tm) { return tm.size() - 1 - tm.lane(); }
+
+// (row a, column b) of entry e of a row-major lower triangle
+__device__ inline void tri_index(int e, int& a, int& b) {
+  a = (int)((dsqrt(8.0f * (float)e + 1.0f) - 1.0f) * 0.5f);
+  while (a * (a + 1) / 2 > e) --a;
+  while ((a + 1) * (a + 2) / 2 <= e) ++a;
+  b = e - a * (a + 1) / 2;
+}
 
 // Scratch layout of the primal, in elements of T per node.  The total
 // (``size``) must equal primal_scratch_elems() in ops/cuda_kernels.py.
+// FI holds the products I_i·J_b of joint i's inertia with dof column b,
+// FW joint i's bias wrench, YI the inverse placement of each contact frame.
 struct Lay {
   int x, u, oR, op, vel, bias, vw, cw, Icw, J, M, tau, Jc, a0, X, Sk, lam,
-      acc, ds, xn, R, size;
+      acc, ds, xn, R, FI, FW, YI, size;
   template <class T> __device__ explicit Lay(const Desc<T>& d) {
     int nj = d.nj(), nv = d.nv(), nx = d.nq() + nv, nc = d.nc();
     int o = 0;
@@ -413,6 +481,7 @@ struct Lay {
     tau = o; o += nv;    Jc = o; o += nc * nv; a0 = o; o += nc;
     X = o; o += nv * (nc + 1); Sk = o; o += nc * nc; lam = o; o += nc;
     acc = o; o += nv;    ds = o; o += 2 * nv; xn = o; o += nx;     R = o; o += d.nr();
+    FI = o; o += 6 * nj * nv; FW = o; o += 6 * nj; YI = o; o += 4 * nc;
     size = o;
   }
 };
@@ -421,32 +490,43 @@ struct Lay {
 // Cholesky and triangular solves on scratch arrays (lchol / lcho_solve)
 // ---------------------------------------------------------------------------
 
-// In-place lower Cholesky of the n x n row-major A (upper part untouched).
-// A negative pivot gives NaN, which propagates: the failure signal.
-template <class S> __device__ void chol_inplace(Arr<S> A, int n) {
+// In-place lower Cholesky of the n x n row-major A (only the lower triangle
+// is read or written).  Column by column: the lanes take the rows from the
+// pivot down, lane 0 holds the pivot row and broadcasts its square root.  A
+// negative pivot gives NaN, which propagates: the failure signal.
+template <class S, class Team> __device__ void chol_inplace(const Team& tm, Arr<S> A, int n) {
+  const int ln = tm.lane(), nl = tm.size();
   for (int j = 0; j < n; ++j) {
-    S s = A.ld(j * n + j);
-    for (int k = 0; k < j; ++k) s = s - A.ld(j * n + k) * A.ld(j * n + k);
-    S dj = dsqrt(s);
-    A.st(j * n + j, dj);
-    for (int i = j + 1; i < n; ++i) {
-      S t = A.ld(i * n + j);
-      for (int k = 0; k < j; ++k) t = t - A.ld(i * n + k) * A.ld(j * n + k);
-      A.st(i * n + j, t / dj);
+    S dj = S(0);
+    for (int i0 = j; i0 < n; i0 += nl) {
+      const int i = i0 + ln;
+      S t = S(0);
+      if (i < n) {
+        t = A.ld(i * n + j);
+#pragma unroll 4
+        for (int k = 0; k < j; ++k) t = t - A.ld(i * n + k) * A.ld(j * n + k);
+      }
+      if (i0 == j) dj = dsqrt(tm.bcast(t));
+      if (i < n) A.st(i * n + j, i == j ? dj : t / dj);
     }
+    tm.sync();
   }
 }
 
-// B (n x m, row-major, column stride ldb) <- (L Lᵀ)⁻¹ B, in place.
-template <class S> __device__ void cho_solve(Arr<S> L, int n, Arr<S> B, int m, int ldb) {
-  for (int c = 0; c < m; ++c) {
+// B (n x m, row-major, column stride ldb) <- (L Lᵀ)⁻¹ B, in place; the lanes
+// take the columns.  No sync: the caller syncs before reading B.
+template <class S, class Team>
+__device__ void cho_solve(const Team& tm, Arr<S> L, int n, Arr<S> B, int m, int ldb) {
+  for (int c = tm.lane(); c < m; c += tm.size()) {
     for (int i = 0; i < n; ++i) {
       S s = B.ld(i * ldb + c);
+#pragma unroll 4
       for (int k = 0; k < i; ++k) s = s - L.ld(i * n + k) * B.ld(k * ldb + c);
       B.st(i * ldb + c, s / L.ld(i * n + i));
     }
     for (int i = n - 1; i >= 0; --i) {
       S s = B.ld(i * ldb + c);
+#pragma unroll 4
       for (int k = i + 1; k < n; ++k) s = s - L.ld(k * n + i) * B.ld(k * ldb + c);
       B.st(i * ldb + c, s / L.ld(i * n + i));
     }
@@ -454,244 +534,321 @@ template <class S> __device__ void cho_solve(Arr<S> L, int n, Arr<S> B, int m, i
 }
 
 // ---------------------------------------------------------------------------
-// State manifold ops on scratch arrays (lane_integrate, _lane_state_diff)
+// State manifold ops on scratch arrays (lane_integrate, _lane_state_diff):
+// the free-flyer SE(3) part on lane 0, the joint coordinates over the other
+// lanes.  No sync: the caller syncs before reading ``out``.
 // ---------------------------------------------------------------------------
 
 // out = x ⊕ dx  (out may not alias x)
-template <class T>
-__device__ void integrate(const Desc<T>& d, Arr<T> x, Arr<T> dx, Arr<T> out) {
-  int nq = d.nq(), nv = d.nv();
+template <class T, class Team>
+__device__ void integrate(const Team& tm, const Desc<T>& d, Arr<T> x, Arr<T> dx, Arr<T> out) {
+  const int nq = d.nq(), nv = d.nv(), rl = rlane(tm), nl = tm.size();
+  int i0 = 0;
   if (d.ff()) {
-    TF<T> Mff;
-    Mff.R = quat_to_rot(x.ld(3), x.ld(4), x.ld(5), x.ld(6));
-    Mff.p = ld3(x, 0);
-    TF<T> Mn = compose(Mff, exp6(ld6(dx, 0)));
-    T q[4];
-    rot_to_quat(Mn.R, q);
-    T n = dsqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
-    st3(out, 0, Mn.p);
-    for (int i = 0; i < 4; ++i) out.st(3 + i, q[i] / n);
-    for (int i = 7; i < nq; ++i) out.st(i, x.ld(i) + dx.ld(i - 1));
-  } else {
-    for (int i = 0; i < nq; ++i) out.st(i, x.ld(i) + dx.ld(i));
+    if (tm.lane() == 0) {
+      TF<T> Mff;
+      Mff.R = quat_to_rot(x.ld(3), x.ld(4), x.ld(5), x.ld(6));
+      Mff.p = ld3(x, 0);
+      TF<T> Mn = compose(Mff, exp6(ld6(dx, 0)));
+      T q[4];
+      rot_to_quat(Mn.R, q);
+      T n = dsqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
+      st3(out, 0, Mn.p);
+      for (int i = 0; i < 4; ++i) out.st(3 + i, q[i] / n);
+    }
+    for (int i = 7 + rl; i < nq; i += nl) out.st(i, x.ld(i) + dx.ld(i - 1));
+    i0 = nq;
   }
-  for (int i = 0; i < nv; ++i) out.st(nq + i, x.ld(nq + i) + dx.ld(nv + i));
+  for (int i = i0 + rl; i < nq; i += nl) out.st(i, x.ld(i) + dx.ld(i));
+  for (int i = rl; i < nv; i += nl) out.st(nq + i, x.ld(nq + i) + dx.ld(nv + i));
 }
 
 // out[o:o+ndx] = x ⊖ xref for a constant xref read at stride ``xs``
-// (knot parameters: 1; a node-last trajectory: B)
-template <class T>
-__device__ void state_diff(const Desc<T>& d, const T* xref, long xs, Arr<T> x,
-                           Arr<T> out, int o) {
-  int nq = d.nq(), nv = d.nv();
+template <class T, class Team>
+__device__ void state_diff(const Team& tm, const Desc<T>& d, const T* xref, long xs,
+                           Arr<T> x, Arr<T> out, int o) {
+  const int nq = d.nq(), nv = d.nv(), rl = rlane(tm), nl = tm.size();
+  int i0 = 0;
   if (d.ff()) {
-    TF<T> M0, M1;
-    M0.R = quat_to_rot(T(xref[3 * xs]), T(xref[4 * xs]), T(xref[5 * xs]), T(xref[6 * xs]));
-    M0.p = v3<T>(T(xref[0]), T(xref[xs]), T(xref[2 * xs]));
-    M1.R = quat_to_rot(x.ld(3), x.ld(4), x.ld(5), x.ld(6));
-    M1.p = ld3(x, 0);
-    V6<T> d6 = log6(compose(inverse(M0), M1));
-    st6(out, o, d6);
-    for (int i = 7; i < nq; ++i) out.st(o + i - 1, x.ld(i) - T(xref[i * xs]));
-  } else {
-    for (int i = 0; i < nq; ++i) out.st(o + i, x.ld(i) - T(xref[i * xs]));
+    if (tm.lane() == 0) {
+      TF<T> M0, M1;
+      M0.R = quat_to_rot(xref[3 * xs], xref[4 * xs], xref[5 * xs], xref[6 * xs]);
+      M0.p = v3<T>(xref[0], xref[xs], xref[2 * xs]);
+      M1.R = quat_to_rot(x.ld(3), x.ld(4), x.ld(5), x.ld(6));
+      M1.p = ld3(x, 0);
+      st6(out, o, log6(compose(inverse(M0), M1)));
+    }
+    for (int i = 7 + rl; i < nq; i += nl) out.st(o + i - 1, x.ld(i) - xref[i * xs]);
+    i0 = nq;
   }
-  for (int i = 0; i < nv; ++i) out.st(o + nv + i, x.ld(nq + i) - T(xref[(nq + i) * xs]));
+  for (int i = i0 + rl; i < nq; i += nl) out.st(o + i, x.ld(i) - xref[i * xs]);
+  for (int i = rl; i < nv; i += nl) out.st(o + nv + i, x.ld(nq + i) - xref[(nq + i) * xs]);
 }
 
 // ---------------------------------------------------------------------------
 // The node primal: kinematics, dynamics (contact KKT), cost residuals, Euler
 // step.  Reads x, u from W (layout Lay), knot parameters from kp; writes the
-// residual stack R and xnext (x itself for dt = 0 nodes) into W.
+// residual stack R and xnext (x itself for dt = 0 nodes) into W.  Every
+// lane of ``tm`` calls it; it ends in a sync.
 // ---------------------------------------------------------------------------
 
+// One joint of the kinematic sweep (lane_kin): its world placement,
+// velocity and bias acceleration from its parent's.
 template <class T>
-__device__ void node_primal(const Desc<T>& d, const T* kp, Arr<T> W) {
+__device__ void joint_kin(const Desc<T>& d, const Lay& L, Arr<T> W, int j) {
+  Arr<T> X = W.at(L.x);
+  const int nq = d.nq(), vo = d.voff(j), par = d.jpar(j), type = d.jt(j);
+  const M3<T> jR = cm3<T>(d.jpR(j));
+  const V3<T> jp = cv3<T>(d.jpp(j));
+  TF<T> Xpl;
+  V6<T> vJ;
+  if (type == J_FF) {
+    Xpl.R = mm(jR, quat_to_rot(X.ld(3), X.ld(4), X.ld(5), X.ld(6)));
+    Xpl.p = add(jp, mv(jR, ld3(X, 0)));
+    for (int i = 0; i < 6; ++i) vJ.a[i] = X.ld(nq + i);
+  } else {
+    const T qj = X.ld(vo + (d.ff() ? 1 : 0));
+    const V3<T> ax = cv3<T>(d.axis(j)), z = v3<T>(T(0), T(0), T(0));
+    V6<T> S6;
+    if (type == J_REV) {
+      M3<T> K = skew(ax), K2 = mm(K, K), RJ = eye3<T>();
+      T s = dsin(qj), c = T(1) - dcos(qj);
+      for (int i = 0; i < 9; ++i) RJ.a[i] = RJ.a[i] + s * K.a[i] + c * K2.a[i];
+      Xpl.R = mm(jR, RJ);
+      Xpl.p = jp;
+      S6 = v6(z, ax);
+    } else {
+      Xpl.R = jR;
+      Xpl.p = add(jp, mv(jR, scl(qj, ax)));
+      S6 = v6(ax, z);
+    }
+    const T vj = X.ld(nq + vo);
+    for (int i = 0; i < 6; ++i) vJ.a[i] = S6.a[i] * vj;
+  }
+  TF<T> Xw;
+  V6<T> vel, bias;
+  if (par < 0) {
+    Xw = Xpl;
+    vel = vJ;
+    bias = cross_motion(vJ, vJ);
+  } else {
+    TF<T> Xp;
+    Xp.R = ldm(W, L.oR + 9 * par);
+    Xp.p = ld3(W, L.op + 3 * par);
+    Xw = compose(Xp, Xpl);
+    const TF<T> Xup = inverse(Xpl);
+    vel = add6(act_motion(Xup, ld6(W, L.vel + 6 * par)), vJ);
+    bias = add6(act_motion(Xup, ld6(W, L.bias + 6 * par)), cross_motion(vel, vJ));
+  }
+  stm(W, L.oR + 9 * j, Xw.R);
+  st3(W, L.op + 3 * j, Xw.p);
+  st6(W, L.vel + 6 * j, vel);
+  st6(W, L.bias + 6 * j, bias);
+}
+
+// What follows from one joint's placement and velocity alone: its Jacobian
+// columns, world velocity, world CoM and world inertia.
+template <class T>
+__device__ void joint_out(const Desc<T>& d, const Lay& L, Arr<T> W, int j) {
+  Arr<T> J = W.at(L.J);
+  const int vo = d.voff(j), type = d.jt(j);
+  TF<T> Xw;
+  Xw.R = ldm(W, L.oR + 9 * j);
+  Xw.p = ld3(W, L.op + 3 * j);
+  if (type == J_FF) {
+    for (int k = 0; k < 6; ++k) {
+      V6<T> e;
+      for (int i = 0; i < 6; ++i) e.a[i] = T(i == k ? 1 : 0);
+      st6(J, 6 * (vo + k), act_motion(Xw, e));
+    }
+  } else {
+    const V3<T> ax = cv3<T>(d.axis(j)), z = v3<T>(T(0), T(0), T(0));
+    st6(J, 6 * vo, act_motion(Xw, type == J_REV ? v6(z, ax) : v6(ax, z)));
+  }
+  st6(W, L.vw + 6 * j, act_motion(Xw, ld6(W, L.vel + 6 * j)));
+  st3(W, L.cw + 3 * j, add(Xw.p, mv(Xw.R, cv3<T>(d.com(j)))));
+  stm(W, L.Icw + 9 * j, mm(mm(Xw.R, cm3<T>(d.inertia(j))), tr(Xw.R)));
+}
+
+template <class T, class Team>
+__device__ void node_primal(const Team& tm, const Desc<T>& d, const T* kp, Arr<T> W) {
   const Lay L(d);
-  const int nj = d.nj(), nv = d.nv(), nq = d.nq(), nc = d.nc();
-  const bool ff = d.ff();
+  const int nj = d.nj(), nv = d.nv(), nq = d.nq(), nc = d.nc(), ncon = d.ncon();
+  const int ln = tm.lane(), nl = tm.size(), rl = rlane(tm);
   Arr<T> X = W.at(L.x), U = W.at(L.u), J = W.at(L.J), M = W.at(L.M);
   Arr<T> TAU = W.at(L.tau), ACC = W.at(L.acc), LAM = W.at(L.lam);
 
-  // ---- kinematic sweep (lane_kin): parents precede children -------------
-  for (int j = 0; j < nj; ++j) {
-    M3<T> jR = cm3<T>(d.jpR(j));
-    V3<T> jp = cv3<T>(d.jpp(j));
-    int vo = d.voff(j), par = d.jpar(j), type = d.jt(j);
-    TF<T> Xpl;
-    V6<T> S6, vJ;
-    if (type == J_FF) {
-      Xpl.R = mm(jR, quat_to_rot(X.ld(3), X.ld(4), X.ld(5), X.ld(6)));
-      Xpl.p = add(jp, mv(jR, ld3(X, 0)));
-      for (int i = 0; i < 6; ++i) { S6.a[i] = T(0); vJ.a[i] = X.ld(nq + i); }
-    } else {
-      T qj = X.ld(vo + (ff ? 1 : 0));
-      V3<T> ax = cv3<T>(d.axis(j)), z = v3<T>(T(0), T(0), T(0));
-      if (type == J_REV) {
-        M3<T> K = skew(ax), K2 = mm(K, K), RJ = eye3<T>();
-        T s = dsin(qj), c = T(1) - dcos(qj);
-        for (int i = 0; i < 9; ++i) RJ.a[i] = RJ.a[i] + s * K.a[i] + c * K2.a[i];
-        Xpl.R = mm(jR, RJ);
-        Xpl.p = jp;
-        S6 = v6(z, ax);
-      } else {
-        Xpl.R = jR;
-        Xpl.p = add(jp, mv(jR, scl(qj, ax)));
-        S6 = v6(ax, z);
-      }
-      T vj = X.ld(nq + vo);
-      for (int i = 0; i < 6; ++i) vJ.a[i] = S6.a[i] * vj;
-    }
-    TF<T> Xw;
-    V6<T> vel, bias;
-    if (par < 0) {
-      Xw = Xpl;
-      vel = vJ;
-      bias = cross_motion(vJ, vJ);
-    } else {
-      TF<T> Xp;
-      Xp.R = ldm(W, L.oR + 9 * par);
-      Xp.p = ld3(W, L.op + 3 * par);
-      Xw = compose(Xp, Xpl);
-      TF<T> Xup = inverse(Xpl);
-      vel = add6(act_motion(Xup, ld6(W, L.vel + 6 * par)), vJ);
-      bias = add6(act_motion(Xup, ld6(W, L.bias + 6 * par)), cross_motion(vel, vJ));
-    }
-    stm(W, L.oR + 9 * j, Xw.R);
-    st3(W, L.op + 3 * j, Xw.p);
-    st6(W, L.vel + 6 * j, vel);
-    st6(W, L.bias + 6 * j, bias);
-    if (type == J_FF) {
-      for (int k = 0; k < 6; ++k) {
-        V6<T> e;
-        for (int i = 0; i < 6; ++i) e.a[i] = T(i == k ? 1 : 0);
-        st6(J, 6 * (vo + k), act_motion(Xw, e));
-      }
-    } else {
-      st6(J, 6 * vo, act_motion(Xw, S6));
-    }
-    st6(W, L.vw + 6 * j, act_motion(Xw, vel));
-    st3(W, L.cw + 3 * j, add(Xw.p, mv(Xw.R, cv3<T>(d.com(j)))));
-    stm(W, L.Icw + 9 * j, mm(mm(Xw.R, cm3<T>(d.inertia(j))), tr(Xw.R)));
+  // ---- kinematic sweep by depth level: the joints of a level go over the
+  // lanes (a team of one walks the joints in order: parents come first) ----
+  const int nlev = nl == 1 ? 1 : d.nlev();
+  for (int lev = 0; lev < nlev; ++lev) {
+    for (int j = ln; j < nj; j += nl)
+      if (nl == 1 || d.depth(j) == lev) joint_kin(d, L, W, j);
+    tm.sync();
   }
+  for (int j = ln; j < nj; j += nl) joint_out(d, L, W, j);
+  tm.sync();
 
-  // ---- mass matrix M = Σ_i J_iᵀ I_i J_i and tau - b ----------------------
-  for (int i = 0; i < nv * nv; ++i) M.st(i, T(0));
-  for (int i = 0; i < nv; ++i) TAU.st(i, T(0));
-  V6<T> g6 = v6(v3<T>(T(-d.gravity()[0]), T(-d.gravity()[1]), T(-d.gravity()[2])),
-                v3<T>(T(0), T(0), T(0)));
+  // ---- products I_i·J_b (lanes over dofs b), bias wrenches (lanes over
+  // joints, from the last lane) and contact frames -------------------------
+  const V6<T> g6 = v6(v3<T>(-d.gravity()[0], -d.gravity()[1], -d.gravity()[2]),
+                      v3<T>(T(0), T(0), T(0)));
   for (int i = 0; i < nj; ++i) {
-    T m = T(d.mass(i));
-    V3<T> c = ld3(W, L.cw + 3 * i);
-    M3<T> Ic = ldm(W, L.Icw + 9 * i);
-    for (int b = 0; b < nv; ++b) {
-      if (!d.amask(i, b)) continue;
-      V6<T> f = mul_motion(m, c, Ic, ld6(J, 6 * b));
-      for (int a = 0; a < nv; ++a) {
-        if (!d.amask(i, a)) continue;
-        T acc = M.ld(a * nv + b);
-        for (int r = 0; r < 6; ++r) acc = acc + J.ld(6 * a + r) * f.a[r];
-        M.st(a * nv + b, acc);
-      }
-    }
-    TF<T> Xw;
-    Xw.R = ldm(W, L.oR + 9 * i);
-    Xw.p = ld3(W, L.op + 3 * i);
-    V6<T> vw = ld6(W, L.vw + 6 * i);
-    V6<T> aw = add6(act_motion(Xw, ld6(W, L.bias + 6 * i)), g6);
-    V6<T> fw = add6(mul_motion(m, c, Ic, aw), cross_force(vw, mul_motion(m, c, Ic, vw)));
-    for (int a = 0; a < nv; ++a) {
-      if (!d.amask(i, a)) continue;
-      T acc = TAU.ld(a);
-      for (int r = 0; r < 6; ++r) acc = acc - J.ld(6 * a + r) * fw.a[r];
-      TAU.st(a, acc);
-    }
+    const T m = d.mass(i);
+    const V3<T> c = ld3(W, L.cw + 3 * i);
+    const M3<T> Ic = ldm(W, L.Icw + 9 * i);
+    for (int b = ln; b < nv; b += nl)
+      if (d.amask(i, b)) st6(W, L.FI + 6 * (i * nv + b), mul_motion(m, c, Ic, ld6(J, 6 * b)));
   }
-  int arm = d.m[H_ARM];
-  if (arm >= 0)
-    for (int a = 0; a < nv; ++a) M.st(a * nv + a, M.ld(a * nv + a) + T(kp[arm + a]));
-  int nu = d.nu(), u0 = d.m[H_FULLACT] ? 0 : 6;
-  for (int i = 0; i < nu; ++i) TAU.st(u0 + i, TAU.ld(u0 + i) + U.ld(i));
-
-  // ---- forward dynamics: Contact3D KKT via two Choleskys -----------------
-  chol_inplace(M, nv);
-  if (nc) {
-    Arr<T> JC = W.at(L.Jc), A0 = W.at(L.a0), XS = W.at(L.X), SK = W.at(L.Sk);
-    for (int c = 0; c < d.ncon(); ++c) {
-      int f = d.con(c, 0), j = d.fpar(f);
-      T on = kp[d.con(c, 3)];
-      const T* pref = kp + d.con(c, 1);
-      const T* gains = kp + d.con(c, 2);
+  Arr<T> A0 = W.at(L.a0);
+  for (int q = rl; q < nj + ncon; q += nl) {
+    if (q < nj) {
+      const T m = d.mass(q);
+      const V3<T> c = ld3(W, L.cw + 3 * q);
+      const M3<T> Ic = ldm(W, L.Icw + 9 * q);
+      TF<T> Xw;
+      Xw.R = ldm(W, L.oR + 9 * q);
+      Xw.p = ld3(W, L.op + 3 * q);
+      const V6<T> vw = ld6(W, L.vw + 6 * q);
+      const V6<T> aw = add6(act_motion(Xw, ld6(W, L.bias + 6 * q)), g6);
+      st6(W, L.FW + 6 * q, add6(mul_motion(m, c, Ic, aw),
+                                cross_force(vw, mul_motion(m, c, Ic, vw))));
+    } else {
+      const int ci = q - nj, f = d.con(ci, 0), j = d.fpar(f);
+      const T on = kp[d.con(ci, 3)];
+      const T* pref = kp + d.con(ci, 1);
+      const T* gains = kp + d.con(ci, 2);
       TF<T> Xj, fX;
       Xj.R = ldm(W, L.oR + 9 * j);
       Xj.p = ld3(W, L.op + 3 * j);
       fX.R = cm3<T>(d.fpR(f));
       fX.p = cv3<T>(d.fpp(f));
-      TF<T> Y = compose(Xj, fX), Yi = inverse(Y);
-      for (int a = 0; a < nv; ++a) {
-        V6<T> col = act_motion(Yi, ld6(J, 6 * a));
-        for (int r = 0; r < 3; ++r)
-          JC.st((3 * c + r) * nv + a, d.amask(j, a) ? col.a[r] * T(on) : T(0));
-      }
-      V6<T> vf = act_motion_inv(fX, ld6(W, L.vel + 6 * j));
-      V6<T> ab = act_motion_inv(fX, ld6(W, L.bias + 6 * j));
+      const TF<T> Y = compose(Xj, fX), Yi = inverse(Y);
+      stm(W, L.YI + 12 * ci, Yi.R);
+      st3(W, L.YI + 12 * ci + 9, Yi.p);
+      const V6<T> vf = act_motion_inv(fX, ld6(W, L.vel + 6 * j));
+      const V6<T> ab = act_motion_inv(fX, ld6(W, L.bias + 6 * j));
       V3<T> a0 = add(lin(ab), cross(ang(vf), lin(vf)));
-      a0 = add(a0, scl(T(gains[0]), sub(Y.p, cv3<T>(pref))));
-      a0 = add(a0, scl(T(gains[1]), lin(vf)));
-      st3(A0, 3 * c, scl(T(on), a0));
+      a0 = add(a0, scl(gains[0], sub(Y.p, cv3<T>(pref))));
+      a0 = add(a0, scl(gains[1], lin(vf)));
+      st3(A0, 3 * ci, scl(on, a0));
     }
-    // X = M⁻¹ [Jcᵀ | tau - b]
-    for (int a = 0; a < nv; ++a) {
-      for (int r = 0; r < nc; ++r) XS.st(a * (nc + 1) + r, JC.ld(r * nv + a));
-      XS.st(a * (nc + 1) + nc, TAU.ld(a));
-    }
-    cho_solve(M, nv, XS, nc + 1, nc + 1);
-    T damp = d.damping();
-    for (int r = 0; r < nc; ++r) {
-      T mr = kp[d.con(r / 3, 3)];
-      for (int s = 0; s < nc; ++s) {
-        T ms = kp[d.con(s / 3, 3)];
-        T acc = T(0);
-        for (int a = 0; a < nv; ++a) acc = acc + JC.ld(r * nv + a) * XS.ld(a * (nc + 1) + s);
-        acc = acc * T(mr * ms) + T(r == s ? (T(1) - mr) + damp * mr * ms : T(0));
-        SK.st(r * nc + s, acc);
+  }
+  tm.sync();
+
+  // ---- mass matrix M = Σ_i J_iᵀ I_i J_i (its lower triangle, the sum over
+  // joints in joint order inside each entry) and tau - b, over the lanes ---
+  const int ntri = nv * (nv + 1) / 2, arm = d.m[H_ARM];
+  const int nu = d.nu(), u0 = d.m[H_FULLACT] ? 0 : 6;
+  for (int e = ln; e < ntri + nv; e += nl) {
+    if (e < ntri) {
+      int a, b;
+      tri_index(e, a, b);
+      T acc = T(0);
+      for (int i = 0; i < nj; ++i) {
+        if (!d.amask(i, a) || !d.amask(i, b)) continue;
+        for (int r = 0; r < 6; ++r) acc = acc + J.ld(6 * a + r) * W.ld(L.FI + 6 * (i * nv + b) + r);
       }
-      T bl = A0.ld(r);
-      for (int a = 0; a < nv; ++a) bl = bl + JC.ld(r * nv + a) * XS.ld(a * (nc + 1) + nc);
-      LAM.st(r, -bl * T(mr));
+      if (arm >= 0 && a == b) acc = acc + kp[arm + a];
+      M.st(a * nv + b, acc);
+    } else {
+      const int a = e - ntri;
+      T acc = T(0);
+      for (int i = 0; i < nj; ++i) {
+        if (!d.amask(i, a)) continue;
+        for (int r = 0; r < 6; ++r) acc = acc - J.ld(6 * a + r) * W.ld(L.FW + 6 * i + r);
+      }
+      if (a >= u0 && a < u0 + nu) acc = acc + U.ld(a - u0);
+      TAU.st(a, acc);
     }
-    chol_inplace(SK, nc);
-    cho_solve(SK, nc, LAM, 1, 1);
-    for (int a = 0; a < nv; ++a) {
+  }
+  tm.sync();
+
+  // ---- forward dynamics: Contact3D KKT via two Choleskys -----------------
+  chol_inplace(tm, M, nv);
+  if (nc) {
+    Arr<T> JC = W.at(L.Jc), XS = W.at(L.X), SK = W.at(L.Sk);
+    // X = M⁻¹ [Jcᵀ | tau - b]: the contact Jacobian by (contact, dof)
+    for (int q = ln; q < ncon * nv + nv; q += nl) {
+      if (q < ncon * nv) {
+        const int ci = q / nv, a = q % nv, j = d.fpar(d.con(ci, 0));
+        const T on = kp[d.con(ci, 3)];
+        TF<T> Yi;
+        Yi.R = ldm(W, L.YI + 12 * ci);
+        Yi.p = ld3(W, L.YI + 12 * ci + 9);
+        const V6<T> col = act_motion(Yi, ld6(J, 6 * a));
+        for (int r = 0; r < 3; ++r) {
+          const T v = d.amask(j, a) ? col.a[r] * on : T(0);
+          JC.st((3 * ci + r) * nv + a, v);
+          XS.st(a * (nc + 1) + 3 * ci + r, v);
+        }
+      } else {
+        const int a = q - ncon * nv;
+        XS.st(a * (nc + 1) + nc, TAU.ld(a));
+      }
+    }
+    tm.sync();
+    cho_solve(tm, M, nv, XS, nc + 1, nc + 1);
+    tm.sync();
+    // the Schur complement (lower triangle) and its right-hand side
+    const T damp = d.damping();
+    const int stri = nc * (nc + 1) / 2;
+    for (int e = ln; e < stri + nc; e += nl) {
+      if (e < stri) {
+        int r, s;
+        tri_index(e, r, s);
+        const T mr = kp[d.con(r / 3, 3)], ms = kp[d.con(s / 3, 3)];
+        T acc = T(0);
+#pragma unroll 6
+        for (int a = 0; a < nv; ++a) acc = acc + JC.ld(r * nv + a) * XS.ld(a * (nc + 1) + s);
+        acc = acc * (mr * ms) + (r == s ? (T(1) - mr) + damp * mr * ms : T(0));
+        SK.st(r * nc + s, acc);
+      } else {
+        const int r = e - stri;
+        const T mr = kp[d.con(r / 3, 3)];
+        T bl = A0.ld(r);
+#pragma unroll 6
+        for (int a = 0; a < nv; ++a) bl = bl + JC.ld(r * nv + a) * XS.ld(a * (nc + 1) + nc);
+        LAM.st(r, -bl * mr);
+      }
+    }
+    tm.sync();
+    chol_inplace(tm, SK, nc);
+    cho_solve(tm, SK, nc, LAM, 1, 1);
+    tm.sync();
+    for (int a = ln; a < nv; a += nl) {
       T acc = XS.ld(a * (nc + 1) + nc);
+#pragma unroll 6
       for (int r = 0; r < nc; ++r) acc = acc + XS.ld(a * (nc + 1) + r) * LAM.ld(r);
       ACC.st(a, acc);
     }
   } else {
-    for (int a = 0; a < nv; ++a) ACC.st(a, TAU.ld(a));
-    cho_solve(M, nv, ACC, 1, 1);
+    for (int a = ln; a < nv; a += nl) ACC.st(a, TAU.ld(a));
+    tm.sync();
+    cho_solve(tm, M, nv, ACC, 1, 1);
   }
+  tm.sync();
 
-  // ---- cost residuals into the stack R -----------------------------------
+  // ---- cost residuals into the stack R: one cost term per lane -----------
   Arr<T> R = W.at(L.R);
-  for (int ci = 0; ci < d.ncost(); ++ci) {
-    int type = d.cost(ci, CF_TYPE), idx = d.cost(ci, CF_IDX);
-    int row = d.cost(ci, CF_ROW), nr = d.cost(ci, CF_NR);
+  for (int ci = ln; ci < d.ncost(); ci += nl) {
+    const int type = d.cost(ci, CF_TYPE), idx = d.cost(ci, CF_IDX);
+    const int row = d.cost(ci, CF_ROW), nr = d.cost(ci, CF_NR);
     const T* ref = kp + d.cost(ci, CF_REF);
     if (type == C_STATE) {
-      state_diff(d, ref, 1, X, R, row);
+      state_diff(Team1{}, d, ref, 1, X, R, row);
     } else if (type == C_CONTROL) {
-      for (int i = 0; i < nr; ++i) R.st(row + i, U.ld(i) - T(ref[i]));
+      for (int i = 0; i < nr; ++i) R.st(row + i, U.ld(i) - ref[i]);
     } else if (type == C_COM) {
       V3<T> acc = v3<T>(T(0), T(0), T(0));
       T mt = 0;
       for (int i = 0; i < nj; ++i) {
-        acc = add(acc, scl(T(d.mass(i)), ld3(W, L.cw + 3 * i)));
+        acc = add(acc, scl(d.mass(i), ld3(W, L.cw + 3 * i)));
         mt += d.mass(i);
       }
       st3(R, row, sub(scl(T(T(1) / mt), acc), cv3<T>(ref)));
     } else if (type == C_FTRANS || type == C_FVEL) {
-      int j = d.fpar(idx);
+      const int j = d.fpar(idx);
       TF<T> Xj, fX;
       Xj.R = ldm(W, L.oR + 9 * j);
       Xj.p = ld3(W, L.op + 3 * j);
@@ -700,34 +857,36 @@ __device__ void node_primal(const Desc<T>& d, const T* kp, Arr<T> W) {
       if (type == C_FTRANS) {
         st3(R, row, sub(compose(Xj, fX).p, cv3<T>(ref)));
       } else {
-        V6<T> vf = act_motion_inv(fX, ld6(W, L.vel + 6 * j));
-        for (int i = 0; i < 6; ++i) R.st(row + i, vf.a[i] - T(ref[i]));
+        const V6<T> vf = act_motion_inv(fX, ld6(W, L.vel + 6 * j));
+        for (int i = 0; i < 6; ++i) R.st(row + i, vf.a[i] - ref[i]);
       }
     } else if (type == C_CONE) {
       for (int i = 0; i < nr; ++i) {
         T acc = T(0);
-        for (int k = 0; k < 3; ++k) acc = acc + T(ref[3 * i + k]) * LAM.ld(3 * idx + k);
+        for (int k = 0; k < 3; ++k) acc = acc + ref[3 * i + k] * LAM.ld(3 * idx + k);
         R.st(row + i, acc);
       }
     } else {  // C_FORCE
-      for (int i = 0; i < nr; ++i) R.st(row + i, LAM.ld(3 * idx + i) - T(ref[i]));
+      for (int i = 0; i < nr; ++i) R.st(row + i, LAM.ld(3 * idx + i) - ref[i]);
     }
   }
 
   // ---- semi-implicit Euler step (dt = 0: xnext = x) ----------------------
-  T dt = kp[d.m[H_DT]];
+  const T dt = kp[d.m[H_DT]];
   Arr<T> XN = W.at(L.xn);
   if (dt == T(0)) {
-    for (int i = 0; i < nq + nv; ++i) XN.st(i, X.ld(i));
+    for (int i = rl; i < nq + nv; i += nl) XN.st(i, X.ld(i));
   } else {
     Arr<T> DS = W.at(L.ds);
-    for (int a = 0; a < nv; ++a) {
-      T acc = ACC.ld(a);
-      DS.st(a, X.ld(nq + a) * T(dt) + acc * T(dt * dt));
-      DS.st(nv + a, acc * T(dt));
+    for (int a = rl; a < nv; a += nl) {
+      const T acc = ACC.ld(a);
+      DS.st(a, X.ld(nq + a) * dt + acc * (dt * dt));
+      DS.st(nv + a, acc * dt);
     }
-    integrate(d, X, DS, XN);
+    tm.sync();
+    integrate(tm, d, X, DS, XN);
   }
+  tm.sync();
 }
 
 // (a, Ar, Arr) of one activation on residual values r (values only: the
@@ -760,22 +919,23 @@ __device__ T activation(int type, int nr, Arr<T> r, const T* w, const T* lb,
   return a;
 }
 
-// cost rate Σ active·weight·a(R) from the residual values of W; with
-// ``grad``, Ar/Arr of every residual row go to AR/ARR
-template <class T>
-__device__ T cost_rate(const Desc<T>& d, const T* kp, Arr<T> R, bool grad,
+// cost rate Σ active·weight·a(R) from the residual values of W, one cost
+// term per lane and a team sum; with ``grad``, Ar/Arr of every residual
+// row go to AR/ARR
+template <class T, class Team>
+__device__ T cost_rate(const Team& tm, const Desc<T>& d, const T* kp, Arr<T> R, bool grad,
                        Arr<T> AR, Arr<T> ARR) {
-  T total = 0;
-  for (int ci = 0; ci < d.ncost(); ++ci) {
-    int row = d.cost(ci, CF_ROW), nr = d.cost(ci, CF_NR);
+  T part = 0;
+  for (int ci = tm.lane(); ci < d.ncost(); ci += tm.size()) {
+    const int row = d.cost(ci, CF_ROW), nr = d.cost(ci, CF_NR);
     const T* w = kp + d.cost(ci, CF_AW);
     const T* lb = kp + d.cost(ci, CF_ALB);
     const T* ub = kp + d.cost(ci, CF_AUB);
-    T a = activation(d.cost(ci, CF_ACT), nr, R.at(row), w, lb, ub, grad,
-                     AR.at(row), ARR.at(row));
-    total += kp[d.cost(ci, CF_ON)] * kp[d.cost(ci, CF_W)] * a;
+    const T a = activation(d.cost(ci, CF_ACT), nr, R.at(row), w, lb, ub, grad,
+                           AR.at(row), ARR.at(row));
+    part += kp[d.cost(ci, CF_ON)] * kp[d.cost(ci, CF_W)] * a;
   }
-  return total;
+  return tm.sum(part);
 }
 
 }  // namespace croc

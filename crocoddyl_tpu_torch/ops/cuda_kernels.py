@@ -7,11 +7,11 @@ linked into one shared library with a plain C interface
 touches nvcc or the library at import time.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs and scratch with ``torch.empty``, launches on the current CUDA
-stream, raises if the launch reports an error, and adds one to its
-``launches`` count.  The node and rollout kernels read a descriptor built
-once per stacked segment from the dataclasses (see ``descriptor``); its
-layout is mirrored in csrc/node_math.cuh.
+outputs (and the node kernel's scratch) with ``torch.empty``, launches on
+the current CUDA stream, raises if the launch reports an error, and adds
+one to its ``launches`` count.  The node and rollout kernels read a
+descriptor built once per stacked segment from the dataclasses (see
+``descriptor``); its layout is mirrored in csrc/node_math.cuh.
 
 Kernels: node linearization (``node_calc_both``), the batched Riccati pass
 (``riccati_backward``) and trial rollout (``trial_rollout``) of the batch
@@ -89,13 +89,16 @@ def build(verbose: bool = False) -> float:
             fn.argtypes = [I, I] + [P] * 15 + [P]
             fn.restype = I
             fn = getattr(lib, f"croc_rollout_{t}")
-            fn.argtypes = [I, I] + [P] * 9 + [D] + [P] * 6 + [P]
+            fn.argtypes = [I] * 6 + [P] * 9 + [D] + [P] * 5 + [P]
             fn.restype = I
+            fn = getattr(lib, f"croc_rollout_{t}_shape")
+            fn.argtypes = [I] * 5 + [P]
+            fn.restype = None
             fn = getattr(lib, f"croc_riccati_b1_{t}")
             fn.argtypes = [I, I, I] + [P] * 10 + [D, D] + [P] * 7 + [P]
             fn.restype = I
             fn = getattr(lib, f"croc_rollout_b1_{t}")
-            fn.argtypes = [I, I] + [P] * 9 + [D] + [P] * 5 + [P]
+            fn.argtypes = [I] * 5 + [P] * 9 + [D] + [P] * 5 + [P]
             fn.restype = I
         _lib = lib
     return time.perf_counter() - t0
@@ -138,9 +141,10 @@ def build_log() -> str:
     return _build_log
 
 
-def _fn(name, dtype):
+def _fn(name, dtype, suffix=""):
     build()
-    return getattr(_lib, f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
+    t = "f64" if dtype == torch.float64 else "f32"
+    return getattr(_lib, f"{name}_{t}{suffix}")
 
 
 def _ptr(t):
@@ -249,7 +253,23 @@ def primal_scratch_elems(nj, nv, nq, nu, nc, nr):
     """Elements of the scratch scalar per node of node_math.cuh's Lay."""
     nx = nq + nv
     return (nx + nu + 42 * nj + 6 * nv + nv * nv + nv + nc * nv + nc
-            + nv * (nc + 1) + nc * nc + nc + nv + 2 * nv + nx + nr)
+            + nv * (nc + 1) + nc * nc + nc + nv + 2 * nv + nx + nr
+            + 6 * nj * nv + 6 * nj + 4 * nc)
+
+
+def rollout_workspace_elems(prim, nx, nu, ndx):
+    """Elements per problem of a rollout team's workspace
+    (csrc/rollout_step.cuh): the primal's Lay, F and DX, and two buffers of
+    one step's rows (xs, us, k, K, fs)."""
+    return prim + 2 * ndx + 2 * (nx + 2 * nu + nu * ndx + ndx)
+
+
+def _depths(parents):
+    """Depth of each joint in the tree (the root is 0)."""
+    depth = []
+    for p in parents:
+        depth.append(0 if p < 0 else depth[p] + 1)
+    return depth
 
 
 def tangent_scratch_elems(nj, nv, nu, nc, nr):
@@ -309,11 +329,12 @@ class _Descriptor:
         _, v_off, _, amask, dof_joint, _, _, _ = _tree_meta(
             tuple(m.parents), tuple(m.joint_types), tuple(m.frame_parents))
         nc = 3 * len(contacts)
+        depth = _depths([int(p) for p in m.parents])
         header = [nj, nv, nq, int(JointType(m.joint_types[0])
                                   == JointType.FREE_FLYER),
                   len(m.frame_parents), len(contacts), len(seg.costs.items),
                   width[0], nu, int(isinstance(seg.actuation, FullActuation)),
-                  dt_off, arm_off, row, nc, 0, 0]
+                  dt_off, arm_off, row, nc, max(depth) + 1, 0]
         assert len(header) == _HEADER
         joints = []
         for j in range(nj):
@@ -321,7 +342,7 @@ class _Descriptor:
                        int(v_off[j]), 0]
         meta = (header + joints + amask.astype(int).reshape(-1).tolist()
                 + list(m.frame_parents) + con_ints + cost_ints
-                + [int(j) for j in dof_joint])
+                + [int(j) for j in dof_joint] + depth)
         r = [m.jp_R, m.jp_p, m.axis, m.mass, m.com, m.inertia, m.fp_R,
              m.fp_p, m.gravity]
         robot = torch.cat([a[0].reshape(-1).to(torch.float64) for a in r]
@@ -334,6 +355,8 @@ class _Descriptor:
             device).contiguous()
         self.K, self.nx, self.ndx, self.nu, self.nr = K, nq + nv, ndx, nu, row
         self.prim = primal_scratch_elems(nj, nv, nq, nu, nc, row)
+        self.ws = rollout_workspace_elems(self.prim, nq + nv, nu, ndx)
+        self.nmeta, self.nrobot, self.P = len(meta), robot.numel(), width[0]
         self.tan = tangent_scratch_elems(nj, nv, nu, nc, row)
         if ndx + nu > 64:
             raise ValueError("the node kernel takes ndx + nu <= 64")
@@ -415,18 +438,27 @@ def trial_rollout(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha):
         return torch.empty(s, dtype=dt, device=dev)
     xs_try, us_try, x_last, cost = e(T, nx, B), e(T, nu, B), e(nx, B), e(B)
     failed = torch.empty(B, dtype=torch.uint8, device=dev)
-    scratch = e((desc.prim + 2 * ndx) * B)
     _launch("croc_rollout", dt, dev,
-            T, B, _ptr(desc.meta), _ptr(desc.robot), _ptr(desc.par),
+            T, B, desc.nmeta, desc.nrobot, desc.P, desc.ws, _ptr(desc.meta),
+            _ptr(desc.robot), _ptr(desc.par),
             *[_ptr(t) for t in (x0_l, xs_l, us_l, k_l, K_l, fs_l)],
             ctypes.c_double(float(alpha)),
-            *[_ptr(t) for t in (xs_try, us_try, x_last, cost, failed,
-                                scratch)])
+            *[_ptr(t) for t in (xs_try, us_try, x_last, cost, failed)])
     trial_rollout.launches += 1
     return xs_try, us_try, x_last, cost, failed.bool()
 
 
 trial_rollout.launches = 0
+
+
+def rollout_launch_shape(seg, B, dtype):
+    """(CTAs, threads per CTA, dynamic shared memory bytes) of kernel 3's
+    launch at B problems, from the launcher itself (builds the library)."""
+    desc = descriptor(seg, torch.device("cpu"), dtype)
+    out = (ctypes.c_int * 3)()
+    _fn("croc_rollout", dtype, "_shape")(B, desc.nmeta, desc.nrobot, desc.P,
+                                        desc.ws, out)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -488,8 +520,9 @@ def trial_rollout_b1(seg, x0, xs, us, k, K, fs, alpha):
     xs_try, us_try, x_last, cost = e(T, nx), e(T, nu), e(nx), e()
     failed = torch.empty((), dtype=torch.uint8, device=dev)
     _launch("croc_rollout_b1", dt, dev,
-            T, desc.prim + 2 * ndx, _ptr(desc.meta), _ptr(desc.robot),
-            _ptr(desc.par), *[_ptr(t) for t in (x0, xs, us, k, K, fs)],
+            T, desc.nmeta, desc.nrobot, desc.P, desc.ws, _ptr(desc.meta),
+            _ptr(desc.robot), _ptr(desc.par),
+            *[_ptr(t) for t in (x0, xs, us, k, K, fs)],
             ctypes.c_double(float(alpha)),
             *[_ptr(t) for t in (xs_try, us_try, x_last, cost, failed)])
     trial_rollout_b1.launches += 1

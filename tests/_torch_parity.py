@@ -9,11 +9,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import fcntl
 import functools
 import os
 import subprocess
 import sys
-import tempfile
 import types
 
 import numpy as np
@@ -124,8 +124,21 @@ np.savez(path, **leaves)
 """
 
 
+@pytest.fixture(scope="session")
+def solve_cache(tmp_path_factory):
+    """The directory where ``solve_pair`` keeps its solutions: under
+    pytest-xdist the parent of the workers' base temporary directories,
+    which all workers of one session share; else the session's own."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    path = base / "torch_solve_pairs"
+    path.mkdir(exist_ok=True)
+    return str(path)
+
+
 @functools.lru_cache(maxsize=None)
-def solve_pair(entry, maxiter):
+def solve_pair(entry, maxiter, cache_dir):
     """(JAX reference, port) solutions of the reduced walk from the
     quasi-static warm start (sequential line search, no trace: the port's
     scope) as namespaces of numpy leaves: ``entry`` "solve" runs
@@ -134,18 +147,25 @@ def solve_pair(entry, maxiter):
     fresh Python process: XLA:CPU has crashed compiling or (de)serializing
     the multi-MB solver programs late in long test workers
     (tests/run_suite.sh), and the port's plain CPU solve is the longest
-    torch work of the suite."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "solutions.npz")
-        res = subprocess.run(
-            [sys.executable, "-c", _SOLVE_CHILD, entry, str(maxiter), path],
-            cwd=REPO, capture_output=True, text=True, timeout=1200)
-        if res.returncode != 0:
-            raise RuntimeError(f"{entry} failed:\n{res.stderr[-4000:]}")
-        with np.load(path) as z:
-            return tuple(types.SimpleNamespace(**{
-                k.split(".", 1)[1]: z[k] for k in z.files
-                if k.startswith(tag + ".")}) for tag in ("ref", "out"))
+    torch work of the suite.  The solutions go to ``cache_dir`` (the
+    ``solve_cache`` fixture) under a file lock: the first worker of a
+    session to ask computes them, the others wait and read them."""
+    path = os.path.join(cache_dir, f"{entry}_{maxiter}.npz")
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            tmp = path + ".part.npz"
+            res = subprocess.run(
+                [sys.executable, "-c", _SOLVE_CHILD, entry, str(maxiter),
+                 tmp], cwd=REPO, capture_output=True, text=True,
+                timeout=1200)
+            if res.returncode != 0:
+                raise RuntimeError(f"{entry} failed:\n{res.stderr[-4000:]}")
+            os.replace(tmp, path)
+    with np.load(path) as z:
+        return tuple(types.SimpleNamespace(**{
+            k.split(".", 1)[1]: z[k] for k in z.files
+            if k.startswith(tag + ".")}) for tag in ("ref", "out"))
 
 
 def describe(obj, path=""):

@@ -67,6 +67,11 @@ def test_descriptor_tables():
                                rtol=0, atol=0)
     assert desc.nr == sum(cost_nr(c, 36) for c in knots.costs.items)
     assert float(desc.robot[-1]) == float(knots.kkt_damping)
+    # the joint-depth table the rollout kernels' sweep walks by level: the
+    # base, then the 4 hips, thighs and shanks
+    assert meta[14] == 4 and len(meta) == desc.nmeta
+    assert meta[-nj:] == [0] + [1, 2, 3] * 4
+    assert (desc.nrobot, desc.P) == (desc.robot.numel(), P)
 
 
 def test_lane_strides_of_solver_views():

@@ -10,12 +10,13 @@ import pytest
 import jax.numpy as jnp
 
 from tests._torch_parity import _no_persistent_cache  # noqa: F401
+from tests._torch_parity import solve_cache  # noqa: F401
 from tests._torch_parity import jax_walk, max_rel, np_, solve_pair, to_port
 
 
 @pytest.fixture(scope="module")
-def solved():
-    return solve_pair("solve_batch", 1)
+def solved(solve_cache):  # noqa: F811
+    return solve_pair("solve_batch", 1, solve_cache)
 
 
 def test_same_decisions(solved):

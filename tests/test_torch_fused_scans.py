@@ -7,7 +7,18 @@ dt=0 switch knots weigh the friction-cone terms against a 1e-3 control
 weight), so a last-bit difference in Quu moves them by ~1e-9 of their
 max-abs (measured 9e-10 at the warm start); they are held to 1e-8, the
 slice's own bar for K and k.  Failure flags equal, including lanes whose
-Quu is not positive definite."""
+Quu is not positive definite.
+
+The rollout kernels' step loop (csrc/rollout_step.cuh with node_math.cuh's
+team primal) is also built for the host with a team of std::threads, at
+team sizes 1 and 32, and held to the same JAX reference: a wrong
+partition, index or missing sync shows up here before a chip run."""
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -21,6 +32,77 @@ from tests._torch_parity import (jax_node_case, jax_walk, max_rel, np_, t64,
                                  to_port)
 
 FIELDS = ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "crocoddyl_tpu_torch", "csrc")
+
+# A host loop over the problems around the rollout kernels' step loop: each
+# problem runs on a team of std::threads with a barrier and a shared buffer
+# for sums and broadcasts; the copies of step rows happen at once.
+_ROLLOUT_HOST = """
+#include <barrier>
+#include <thread>
+#include <vector>
+
+namespace {
+struct HostTeam {
+  int l, n;
+  std::barrier<>* bar;
+  double* buf;
+  int lane() const { return l; }
+  int size() const { return n; }
+  void sync() const { bar->arrive_and_wait(); }
+  template <class S> S sum(S x) const {
+    buf[l] = x;
+    sync();
+    S s = 0;
+    for (int i = 0; i < n; ++i) s += buf[i];
+    sync();
+    return s;
+  }
+  template <class S> S bcast(S x) const {
+    if (l == 0) buf[0] = x;
+    sync();
+    const S r = buf[0];
+    sync();
+    return r;
+  }
+};
+
+struct HostPipe {
+  const HostTeam* tm;
+  template <class T> void copy(T* dst, const T* src) const { *dst = *src; }
+  void commit() const {}
+  void wait() const { tm->sync(); }
+};
+}  // namespace
+
+// -1 if the workspace size differs from the kernels' layout
+extern "C" int rollout_host_f64(
+    int team, int Tn, int B, int ws, const int* meta, const double* robot,
+    const double* par, const double* x0, const double* xs, const double* us,
+    const double* k, const double* K, const double* fs, double alpha,
+    double* xs_try, double* us_try, double* x_last, double* cost,
+    unsigned char* failed) {
+  const croc::Desc<double> d{meta, robot};
+  const croc::Lay L(d);
+  if (L.size + 4 * d.nv() + 2 * croc::step_row_elems(d) != ws) return -1;
+  for (int b = 0; b < B; ++b) {
+    std::vector<double> parbuf(2 * d.P()), work(ws), buf(team);
+    std::barrier<> bar(team);
+    std::vector<std::thread> lanes;
+    for (int l = 0; l < team; ++l)
+      lanes.emplace_back([&, l] {
+        const HostTeam tm{l, team, &bar, buf.data()};
+        croc::rollout_problem(tm, HostPipe{&tm}, l, team, d, Tn, B, b, true,
+                              par, parbuf.data(), work.data(), x0, xs, us, k,
+                              K, fs, alpha, xs_try, us_try, x_last, cost,
+                              failed);
+      });
+    for (auto& t : lanes) t.join();
+  }
+  return 0;
+}
+"""
 
 
 def _lanes(a, B):
@@ -31,6 +113,11 @@ def _lanes(a, B):
 
 @pytest.fixture(scope="module")
 def riccati_case():
+    return _riccati_case()
+
+
+@functools.lru_cache(maxsize=None)
+def _riccati_case():
     """Derivatives (T, ..., B) + terminal, gaps, regularizations; lane 0 of
     the second regularization set has a non-PD Quu."""
     from crocoddyl_tpu.core.action import NodeDerivs as JD
@@ -72,11 +159,12 @@ def test_plain_riccati_matches_jax(riccati_case, nonpd):
         assert max_rel(np.asarray(a)[..., ok], np_(b)[..., ok]) < tol, name
 
 
-@pytest.mark.parametrize("alpha", [1.0, 0.25])
-def test_plain_rollout_matches_jax(riccati_case, alpha):
+@functools.lru_cache(maxsize=None)
+def _rollout_case(alpha):
+    """Rollout inputs (T, ..., B) on the riccati_case gains and the JAX
+    lane rollout ``trial_rollout_lanes(..., interpret=True)`` of them."""
     from crocoddyl_tpu.ops import fused_scans as jfs
-    from crocoddyl_tpu_torch.ops import fused_scans as tfs
-    (jd, jterm), (td, tterm), fs, B = riccati_case
+    (jd, jterm), _, fs, B = _riccati_case()
     reg = np.full(B, 1e-9)
     _, _, _, k, K, _, _ = jfs.riccati_backward_lanes(
         jd, jterm, jnp.asarray(fs), jnp.asarray(reg), jnp.asarray(reg),
@@ -91,12 +179,68 @@ def test_plain_rollout_matches_jax(riccati_case, alpha):
     ref = jfs.trial_rollout_lanes(
         seg, jnp.asarray(x0), jnp.asarray(xs), jnp.asarray(us), k, K,
         jnp.asarray(fs[:-1]), jnp.asarray(fs[-1]), alpha, interpret=True)
-    out = tfs.trial_rollout_lanes(
-        to_port(seg), t64(x0), t64(xs), t64(us), t64(k), t64(K),
-        t64(fs[:-1]), t64(fs[-1]), alpha)
-    np.testing.assert_array_equal(np.asarray(ref[-1]), np_(out[-1]))
+    ins = (x0, xs, us, np.asarray(k), np.asarray(K), fs[:-1])
+    return seg, ins, fs[-1], tuple(np.asarray(a) for a in ref)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.25])
+def test_plain_rollout_matches_jax(alpha):
+    from crocoddyl_tpu_torch.ops import fused_scans as tfs
+    seg, ins, fsT, ref = _rollout_case(alpha)
+    out = tfs.trial_rollout_lanes(to_port(seg), *[t64(a) for a in ins],
+                                  t64(fsT), alpha)
+    np.testing.assert_array_equal(ref[-1], np_(out[-1]))
     for a, b in zip(ref[:-1], out[:-1]):
         assert max_rel(a, b) < 1e-10
+
+
+@pytest.fixture(scope="module")
+def rollout_host(tmp_path_factory):
+    """csrc/rollout_kernel.cu (the rollout step loop and the team primal)
+    built for the host by the C++ compiler that builds
+    native/urdf_loader.cpp, with a team of std::threads."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a C++ compiler is needed (it also builds the URDF parser)"
+    d = tmp_path_factory.mktemp("rollout_host")
+    src, so = d / "rollout_host.cpp", d / "librollout_host.so"
+    src.write_text(f'#include "{CSRC}/rollout_kernel.cu"\n' + _ROLLOUT_HOST)
+    res = subprocess.run([cxx, "-O1", "-std=c++20", "-pthread", "-shared",
+                          "-fPIC", "-o", str(so), str(src)],
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    return ctypes.CDLL(str(so))
+
+
+@pytest.mark.parametrize("team", [1, 32])
+def test_rollout_kernel_source_matches_jax(rollout_host, team):
+    """The rollout kernels' step loop, run on the host by a team of 1 and
+    of 32 threads on the reduced walk's B=3 problems at α=0.25, against the
+    JAX lane rollout: xs_try, us_try, x_last and cost within 1e-10 of each
+    output's max-abs, failure flags equal."""
+    from crocoddyl_tpu_torch.ops import cuda_kernels as ck
+    alpha = 0.25
+    seg, ins, _, ref = _rollout_case(alpha)
+    port = to_port(seg)
+    desc = ck.descriptor(port, torch.device("cpu"), torch.float64)
+    x0, xs, us, k, K, fs = [t64(a).contiguous() for a in ins]
+    T, B = us.shape[0], x0.shape[-1]
+    out = dict(xs_try=torch.zeros(T, desc.nx, B, dtype=torch.float64),
+               us_try=torch.zeros(T, desc.nu, B, dtype=torch.float64),
+               x_last=torch.zeros(desc.nx, B, dtype=torch.float64),
+               cost=torch.zeros(B, dtype=torch.float64),
+               failed=torch.zeros(B, dtype=torch.uint8))
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+    fn = rollout_host.rollout_host_f64
+    fn.restype = ctypes.c_int
+    rc = fn(team, T, B, desc.ws, ptr(desc.meta), ptr(desc.robot),
+            ptr(desc.par), *[ptr(t) for t in (x0, xs, us, k, K, fs)],
+            ctypes.c_double(alpha), *[ptr(t) for t in out.values()])
+    assert rc == 0, "workspace size differs from the kernels' layout"
+    np.testing.assert_array_equal(ref[-1], np_(out["failed"]).astype(bool))
+    for name, a in zip(("xs_try", "us_try", "x_last", "cost"), ref[:-1]):
+        assert max_rel(a, out[name]) < 1e-10, name
 
 
 def test_scan_wrappers_take_plain_versions_on_cpu(riccati_case):

@@ -14,9 +14,9 @@ package, float64 on CPU, on the reduced ANYmal walk.
   within 1e-8 of the states' max-abs, see ``_same_solution``);
 - the gate and the device rule of the entry points.
 
-Each exit's JAX and port solves run once, together, in a fresh process
-(``solve_pair``), and each exit is one test, so that one worker pays for
-each.
+Each exit's JAX and port solves run once a session, together, in a fresh
+process (``solve_pair``), and each exit is one test, so that one worker
+pays for each.
 """
 
 import numpy as np
@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from tests._torch_parity import _no_persistent_cache  # noqa: F401
+from tests._torch_parity import solve_cache  # noqa: F401
 from tests._torch_parity import (jax_walk, max_rel, np_, solve_pair, t64,
                                  to_port)
 
@@ -123,18 +124,18 @@ def _same_solution(ref, out, decisions):
         np.asarray(ref.xs)))
 
 
-def test_solve_replan_matches_jax():
+def test_solve_replan_matches_jax(solve_cache):  # noqa: F811
     """maxiter=1, the MPC replan: the direction fields belong to the
     candidate before the step (fddp.py:817-824)."""
-    _same_solution(*solve_pair("solve", 1),
+    _same_solution(*solve_pair("solve", 1, solve_cache),
                    ("iter", "steplength", "is_feasible"))
 
 
-def test_solve_multi_iteration_matches_jax():
+def test_solve_multi_iteration_matches_jax(solve_cache):  # noqa: F811
     """maxiter=20: the loop exit, with the direction recomputed at the
     returned trajectory and xreg/ureg/diverged kept from the loop
     (fddp.py:825-866)."""
-    _same_solution(*solve_pair("solve", 20),
+    _same_solution(*solve_pair("solve", 20, solve_cache),
                    ("iter", "steplength", "is_feasible", "converged",
                     "xreg", "ureg", "diverged"))
 
