@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the node kernel and the two rollout kernels of one checkout of the
-port on one NVIDIA GPU, at each lane's main-path shapes.
+"""Time the five CUDA kernels of one checkout of the port on one NVIDIA
+GPU, at each lane's main-path shapes.
 
 Usage: ``python3 chip_kernel_times.py [--root DIR] [--dtype float64]``.  It
 imports ``crocoddyl_tpu_torch`` from DIR (default: this script's
@@ -11,6 +11,8 @@ pass at regularization 1):
 
 - kernel 1 (node) at B=256 (N=27,904 nodes) and at the N=109 nodes of one
   problem;
+- kernel 2 (batch Riccati pass) at B=256 and kernel 4 (single-problem
+  Riccati pass), on the plain node derivatives at regularization 1;
 - kernel 3 (batch rollout) at B=256, α=0.5;
 - kernel 5 (single-problem rollout), α=0.5.
 
@@ -76,6 +78,8 @@ def main():
           inp["fs"][:-1].contiguous())
     out["node_ms"] = cs.cuda_time(torch, lambda: ck.node_calc_both(
         inp["knots"], inp["x_n"], inp["u_n"]))
+    out["riccati_ms"] = cs.cuda_time(torch, lambda: ck.riccati_backward(
+        d_l, dT_l, inp["fs"], reg, reg))
     out["rollout_ms"] = cs.cuda_time(torch, lambda: ck.trial_rollout(
         *ro, 0.5))
 
@@ -96,6 +100,8 @@ def main():
            fs1[:-1].contiguous())
     out["node_b1_ms"] = cs.cuda_time(torch, lambda: ck.node_calc_both(
         inp1["knots"], inp1["x_n"], inp1["u_n"]))
+    out["riccati_b1_ms"] = cs.cuda_time(torch, lambda: ck.riccati_backward_b1(
+        one(d1), one(dT1), fs1, cs.REG_F32, cs.REG_F32))
     out["rollout_b1_ms"] = cs.cuda_time(torch, lambda: ck.trial_rollout_b1(
         *ro1, 0.5))
     print(json.dumps(out))

@@ -15,8 +15,9 @@ Phases (any failure exits non-zero; each prints its seconds):
    float32 against the float64 plain version; a forced Riccati failure,
    and forced rollout failures (one lane's gaps, and in one extra b=1
    call all gaps, scaled by 1e35) flagged by kernel and plain alike; the
-   rollout kernels' registers, stack and spills (``ptxas -v``) and kernel
-   3's launch shape at B=256;
+   registers, stack and spills (``ptxas -v``) of kernels 1 to 5, and the
+   launch shapes (CTAs, threads, nodes or problems per CTA, dynamic shared
+   memory) of kernels 1 (at N=27,904 and N=109), 2, 3 and 4 per dtype;
 4. batch lane: ``solve_batch(maxiter=1)`` on the ANYmal walk (T=108,
    B=256) through the kernels in float32 (launch counts, finite costs),
    then the float64 kernel path against the float64 plain path (same
@@ -353,20 +354,52 @@ def check_b1_kernels(torch, prob, dev, dt, tag, seed=0, warm=None, reg=1e-9):
 
 def ptxas_lines(build_log, kernels):
     """``ptxas -v``'s registers, stack, spills and shared memory of each
-    kernel whose (mangled) name holds one of ``kernels``."""
+    kernel whose (mangled) name holds one of ``kernels``, labelled with its
+    template arguments (the scalar, and the Riccati kernels' padded nu)."""
+    import re
     out, name = [], None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = next((k + ("<double>" if f"{len(k)}{k}IdE" in mangled
-                              else "<float>")
-                         for k in kernels if f"{len(k)}{k}I" in mangled),
-                        None)
+            name = None
+            for k in kernels:
+                if f"{len(k)}{k}I" in mangled:
+                    args = ["double" if f"{len(k)}{k}Id" in mangled
+                            else "float"]
+                    args += re.findall(r"Li(\d+)E", mangled)
+                    name = f"{k}<{', '.join(args)}>"
+                    break
         elif name and ("spill" in line or "Used" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
             if "Used" in line:
                 name = None
     return out
+
+
+def log_launch_shapes(torch, ck, prob, dev):
+    """Kernels 1 to 4's launch shapes at the main path's sizes, per dtype,
+    as their launchers compute them."""
+    from crocoddyl_tpu_torch.utils.struct import tree_map
+    T, ndx, nu = prob.T, prob.state.ndx, prob.nu
+    term = prob.terminal.replace(dt=torch.zeros_like(prob.terminal.dt))
+    knots = tree_map(lambda r, t: torch.cat([r, t[None]]), prob.running, term)
+    for dt in (torch.float32, torch.float64):
+        for N in ((T + 1) * B_BENCH, T + 1):
+            ctas, threads, per, smem = ck.node_launch_shape(knots, N, dt, dev)
+            log(f"[kernels] node kernel launch at N={N} ({dt}): {ctas} CTAs "
+                f"of {threads} threads, {per} nodes (one a warp) per CTA, "
+                f"{smem} B of dynamic shared memory per CTA")
+        k2, k4 = ck.riccati_launch_shape(B_BENCH, ndx, nu, dt)
+        log(f"[kernels] riccati kernel launch at B={B_BENCH} ({dt}): "
+            f"{k2[0]} CTAs of {k2[1]} threads, 1 problem per CTA, {k2[2]} B "
+            f"of dynamic shared memory per CTA")
+        log(f"[kernels] riccati_b1 kernel launch ({dt}): {k4[0]} CTA of "
+            f"{k4[1]} threads, {k4[2]} B of dynamic shared memory")
+        ctas, threads, smem = ck.rollout_launch_shape(prob.running, B_BENCH,
+                                                      dt)
+        log(f"[kernels] rollout kernel launch at B={B_BENCH} ({dt}): {ctas} "
+            f"CTAs of {threads // 32} warps (one problem per warp), {smem} B "
+            f"of dynamic shared memory per CTA")
 
 
 def count_ops(torch, fn):
@@ -596,8 +629,9 @@ def main():
     with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
         f.write(ck.build_log())
     log(f"[build] {secs:.1f} s  ({card})")
-    for line in ptxas_lines(ck.build_log(), ("rollout_kernel",
-                                             "rollout_b1_kernel")):
+    for line in ptxas_lines(ck.build_log(), (
+            "node_kernel", "riccati_kernel", "riccati_b1_kernel",
+            "rollout_kernel", "rollout_b1_kernel")):
         log(f"[build] {line}")
     phase_done("build")
 
@@ -611,12 +645,7 @@ def main():
     T, nx, nu = prob.T, prob.state.nx, prob.nu
     p64 = to_dev(torch, prob, dev, f64)
     p32 = to_dev(torch, prob, dev, f32)
-    for dt in (f32, f64):
-        ctas, threads, smem = ck.rollout_launch_shape(prob.running, B_BENCH,
-                                                      dt)
-        log(f"[kernels] rollout kernel launch at B={B_BENCH} ({dt}): {ctas} "
-            f"CTAs of {threads // 32} warps (one problem per warp), {smem} B "
-            f"of dynamic shared memory per CTA")
+    log_launch_shapes(torch, ck, prob, dev)
     errs64 = check_kernels(torch, p64, B_BENCH, dev, f64, "f64 bench")[0]
     errs, inp, derivs_l, dterm_l, xreg, k_l, K_l = check_kernels(
         torch, p32, B_BENCH, dev, f32, "f32 bench", warm=(xs0, us0),

@@ -9,11 +9,10 @@
 // templated on the scalar (float or double) and, for the node primal, on a
 // Team: the lanes that compute one node together (see "Teams" below).
 //
-// Memory: per-node arrays live in a workspace W read through Arr<T>: a
-// wrapper-allocated node-last scratch tensor (element i of node n at
-// base[i * N + n]) for the node kernel, whose team is one thread, or the
-// team's slice of shared memory (stride 1) for the rollout kernels.  Only
-// 3- and 6-vectors, 3x3 blocks and a few 6x6 blocks are kept in registers.
+// Memory: per-node arrays live in a workspace W read through Arr<T>: the
+// team's slice of shared memory (stride 1) in the node and rollout
+// kernels.  Only 3- and 6-vectors, 3x3 blocks and a few 6x6 blocks are
+// kept in registers.
 //
 // The descriptor layout (meta ints, robot floats, packed knot parameters)
 // is built by crocoddyl_tpu_torch/ops/cuda_kernels.py; keep both in sync.
@@ -22,9 +21,12 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #else
-// Host build of the per-node math: tests/test_torch_fused_node.py compiles
-// node_kernel.cu with a C++ compiler and holds node_one to the JAX lane code.
+// Host build of the per-node math: tests/test_torch_fused_node.py and
+// test_torch_fused_scans.py compile node_kernel.cu and rollout_kernel.cu
+// with a C++ compiler and hold them to the JAX lane code.
+#ifndef __device__
 #define __device__
+#endif
 #endif
 #include <math.h>
 
@@ -424,11 +426,13 @@ template <class T> struct Desc {
 // on every lane) and bcast(x) (lane 0's x on every lane).  Every lane must
 // reach every sync, sum and bcast: control flow around them is uniform.
 // Each phase below splits its work over the lanes by its own structure and
-// ends in a sync.  Team1 is one lane: the node kernel's thread, or one lane
-// of a larger team running a small piece alone; with it, every phase runs
-// its items in order and computes what a serial loop would.  WarpTeam is
-// the 32 lanes of a warp.  The host build of the rollout
-// (tests/test_torch_fused_scans.py) brings a team of std::threads.
+// ends in a sync.  Team1 is one lane: a serial reference (the host builds
+// run it beside a team of 32), or one lane of a larger team running a small
+// piece alone; with it, every phase runs its items in order and computes
+// what a serial loop would.  WarpTeam is
+// the 32 lanes of a warp: the node kernel's and the rollouts' team.  The
+// host builds (tests/test_torch_fused_node.py, test_torch_fused_scans.py)
+// bring a team of std::threads.
 struct Team1 {
   __device__ int lane() const { return 0; }
   __device__ int size() const { return 1; }
@@ -513,24 +517,28 @@ template <class S, class Team> __device__ void chol_inplace(const Team& tm, Arr<
   }
 }
 
+// Column c of B (n rows, row stride ldb) <- (L Lᵀ)⁻¹ B, in place.
+template <class S>
+__device__ void cho_solve_col(Arr<S> L, int n, Arr<S> B, int c, int ldb) {
+  for (int i = 0; i < n; ++i) {
+    S s = B.ld(i * ldb + c);
+#pragma unroll 4
+    for (int k = 0; k < i; ++k) s = s - L.ld(i * n + k) * B.ld(k * ldb + c);
+    B.st(i * ldb + c, s / L.ld(i * n + i));
+  }
+  for (int i = n - 1; i >= 0; --i) {
+    S s = B.ld(i * ldb + c);
+#pragma unroll 4
+    for (int k = i + 1; k < n; ++k) s = s - L.ld(k * n + i) * B.ld(k * ldb + c);
+    B.st(i * ldb + c, s / L.ld(i * n + i));
+  }
+}
+
 // B (n x m, row-major, column stride ldb) <- (L Lᵀ)⁻¹ B, in place; the lanes
 // take the columns.  No sync: the caller syncs before reading B.
 template <class S, class Team>
 __device__ void cho_solve(const Team& tm, Arr<S> L, int n, Arr<S> B, int m, int ldb) {
-  for (int c = tm.lane(); c < m; c += tm.size()) {
-    for (int i = 0; i < n; ++i) {
-      S s = B.ld(i * ldb + c);
-#pragma unroll 4
-      for (int k = 0; k < i; ++k) s = s - L.ld(i * n + k) * B.ld(k * ldb + c);
-      B.st(i * ldb + c, s / L.ld(i * n + i));
-    }
-    for (int i = n - 1; i >= 0; --i) {
-      S s = B.ld(i * ldb + c);
-#pragma unroll 4
-      for (int k = i + 1; k < n; ++k) s = s - L.ld(k * n + i) * B.ld(k * ldb + c);
-      B.st(i * ldb + c, s / L.ld(i * n + i));
-    }
-  }
+  for (int c = tm.lane(); c < m; c += tm.size()) cho_solve_col(L, n, B, c, ldb);
 }
 
 // ---------------------------------------------------------------------------

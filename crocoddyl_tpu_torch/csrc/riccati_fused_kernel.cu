@@ -9,23 +9,28 @@
 //
 // Bound on this card: latency.  The launch is one CTA on one of 132 SMs,
 // and its T = 108 steps are dependent; each step is ~0.3 MFLOP of 36x36
-// products split over the CTA plus a 12-row Cholesky on one warp, with ~10
-// barriers.  Its bytes (~2.4 MB in f32 for the whole pass) would take under
-// a microsecond at 3.35 TB/s.
+// products split over the CTA plus a 12-row Cholesky and the gains' solves
+// in warp 0's registers, with five CTA barriers.  Its bytes (~2.4 MB in f32
+// for the whole pass) would take under a microsecond at 3.35 TB/s.
 //
-// Design: one CTA of 512 threads (twice the batched kernel's 256: at b=1
-// this CTA is the whole launch, so more threads shorten each product phase;
-// 512 keeps 128 registers a thread).  Inputs are contiguous single-problem
-// arrays (T, ...): riccati_cta reads them with element stride 1 and time
-// stride = the step's element count, problem index 0 of 1.  xreg and ureg
+// Design: one CTA of 256 threads, the batched kernel's CTA body on one
+// problem: the step's blocks come in by cp.async one step ahead, and the
+// critical path is warp 0's factorization and solves; a CTA of 512 threads
+// took longer (more threads only lengthen the five barriers of a step).
+// Inputs are contiguous single-problem arrays (T, ...): riccati_cta reads
+// them with element stride 1 and time stride = the step's element count,
+// problem index 0 of 1.  xreg and ureg
 // come by value; ``failed`` is one byte.
 #include "riccati_pass.cuh"
 
+#ifdef __CUDACC__
+#include "cta.cuh"
+
 namespace croc {
 
-constexpr int kRiccatiB1Threads = 512;
+constexpr int kRiccatiB1Threads = 256;
 
-template <class T>
+template <class T, int NU>
 __global__ void __launch_bounds__(kRiccatiB1Threads)
 riccati_b1_kernel(int Tn, int ndx, int nu, LaneStrides S, const T* Fx,
                   const T* Fu, const T* Lx, const T* Lu, const T* Lxx,
@@ -33,22 +38,22 @@ riccati_b1_kernel(int Tn, int ndx, int nu, LaneStrides S, const T* Fx,
                   const T* fs, T xreg, T ureg, T* Vx_o, T* Vxx_o, T* Qu_o,
                   T* k_o, T* K_o, T* Quuk_o, unsigned char* failed_o) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int bad;
-  riccati_cta<T>(Tn, 1, 0, ndx, nu, S, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT,
-                 LxxT, fs, xreg, ureg, Vx_o, Vxx_o, Qu_o, k_o, K_o, Quuk_o,
-                 failed_o, reinterpret_cast<T*>(smem_raw), bad);
+  riccati_cta<T, NU>(BlockCta{}, AsyncPipe{}, Tn, 1, 0, ndx, nu, S, Fx, Fu, Lx,
+                 Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg, ureg, Vx_o, Vxx_o,
+                 Qu_o, k_o, K_o, Quuk_o, failed_o,
+                 reinterpret_cast<T*>(smem_raw));
 }
 
-template <class T>
+template <class T, int NU>
 int launch_riccati_b1(int Tn, int ndx, int nu, const T* Fx, const T* Fu,
                       const T* Lx, const T* Lu, const T* Lxx, const T* Lxu,
                       const T* Luu, const T* LxT, const T* LxxT, const T* fs,
                       double xreg, double ureg, T* Vx, T* Vxx, T* Qu, T* k,
                       T* K, T* Quuk, unsigned char* failed, void* stream) {
-  if (nu > 32) return (int)cudaErrorInvalidValue;  // one warp factors Quu
+  if (nu > kRiccatiMaxNu || ndx + 1 > 64) return (int)cudaErrorInvalidValue;
   size_t smem = riccati_smem(ndx, nu, sizeof(T));
   cudaError_t e = cudaFuncSetAttribute(
-      riccati_b1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      riccati_b1_kernel<T, NU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   // contiguous (T, elems...) inputs: time stride = elements per step
@@ -61,7 +66,7 @@ int launch_riccati_b1(int Tn, int ndx, int nu, const T* Fx, const T* Fu,
     S.ts[k] = step[k];
     S.es[k] = 1;
   }
-  riccati_b1_kernel<T><<<1, kRiccatiB1Threads, smem, (cudaStream_t)stream>>>(
+  riccati_b1_kernel<T, NU><<<1, kRiccatiB1Threads, smem, (cudaStream_t)stream>>>(
       Tn, ndx, nu, S, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, T(xreg),
       T(ureg), Vx, Vxx, Qu, k, K, Quuk, failed);
   return (int)cudaGetLastError();
@@ -76,9 +81,19 @@ int launch_riccati_b1(int Tn, int ndx, int nu, const T* Fx, const T* Fu,
                       const T* fs, double xreg, double ureg, T* Vx, T* Vxx,  \
                       T* Qu, T* k, T* K, T* Quuk, unsigned char* failed,     \
                       void* stream) {                                        \
-    return croc::launch_riccati_b1<T>(Tn, ndx, nu, Fx, Fu, Lx, Lu, Lxx, Lxu, \
-                                      Luu, LxT, LxxT, fs, xreg, ureg, Vx,    \
-                                      Vxx, Qu, k, K, Quuk, failed, stream);  \
+    auto launch = croc::riccati_nu_pad(nu) == 12                             \
+                      ? croc::launch_riccati_b1<T, 12>                       \
+                      : croc::launch_riccati_b1<T, 16>;                      \
+    return launch(Tn, ndx, nu, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, \
+                  xreg, ureg, Vx, Vxx, Qu, k, K, Quuk, failed, stream);      \
   }
 CROC_RICCATI_B1(croc_riccati_b1_f32, float)
 CROC_RICCATI_B1(croc_riccati_b1_f64, double)
+
+// CTAs, threads per CTA and dynamic shared memory of a launch
+extern "C" void croc_riccati_b1_shape(int ndx, int nu, int elem, int* out) {
+  out[0] = 1;
+  out[1] = croc::kRiccatiB1Threads;
+  out[2] = (int)croc::riccati_smem(ndx, nu, (size_t)elem);
+}
+#endif  // __CUDACC__

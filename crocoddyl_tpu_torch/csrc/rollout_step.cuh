@@ -15,6 +15,7 @@
 // CTA share) are copied into the other half of a double buffer while step
 // t runs: none of them depends on the chain, so their latency leaves it.
 #pragma once
+#include "cta.cuh"
 #include "node_math.cuh"
 
 namespace croc {
@@ -118,25 +119,7 @@ __device__ void rollout_problem(const Team& tm, const Pipe& pipe, int cta_tid, i
 }  // namespace croc
 
 #ifdef __CUDACC__
-#include <cuda_pipeline.h>
-
 namespace croc {
-
-// cp.async of one element into shared memory; wait drains this thread's
-// copies and then meets the CTA at a barrier, so every thread's copies are
-// visible and every thread is done with the buffer the next copies reuse.
-struct AsyncPipe {
-  template <class T> __device__ void copy(T* dst, const T* src) const {
-    __pipeline_memcpy_async(dst, src, sizeof(T));
-  }
-  __device__ void commit() const { __pipeline_commit(); }
-  __device__ void wait() const {
-    __pipeline_wait_prior(0);
-    __syncthreads();
-  }
-};
-
-__host__ __device__ inline int up4(int n) { return (n + 3) & ~3; }
 
 // Dynamic shared memory of a rollout CTA: the descriptor (meta ints, robot
 // floats), the double-buffered knot parameters, one workspace per warp.

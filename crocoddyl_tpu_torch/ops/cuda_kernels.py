@@ -7,9 +7,8 @@ linked into one shared library with a plain C interface
 touches nvcc or the library at import time.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs (and the node kernel's scratch) with ``torch.empty``, launches on
-the current CUDA stream, raises if the launch reports an error, and adds
-one to its ``launches`` count.  The node and rollout kernels read a
+outputs with ``torch.empty``, launches on the current CUDA stream, raises
+if the launch reports an error, and adds one to its ``launches`` count.  The node and rollout kernels read a
 descriptor built once per stacked segment from the dataclasses (see
 ``descriptor``); its layout is mirrored in csrc/node_math.cuh.
 
@@ -86,7 +85,10 @@ def build(verbose: bool = False) -> float:
             fn.argtypes = [I, I, I, I] + [P] * 20 + [P]
             fn.restype = I
             fn = getattr(lib, f"croc_node_{t}")
-            fn.argtypes = [I, I] + [P] * 15 + [P]
+            fn.argtypes = [I] * 5 + [P] * 14 + [P]
+            fn.restype = I
+            fn = getattr(lib, f"croc_node_{t}_shape")
+            fn.argtypes = [I] * 4 + [P]
             fn.restype = I
             fn = getattr(lib, f"croc_rollout_{t}")
             fn.argtypes = [I] * 6 + [P] * 9 + [D] + [P] * 5 + [P]
@@ -100,6 +102,10 @@ def build(verbose: bool = False) -> float:
             fn = getattr(lib, f"croc_rollout_b1_{t}")
             fn.argtypes = [I] * 5 + [P] * 9 + [D] + [P] * 5 + [P]
             fn.restype = I
+        lib.croc_riccati_shape.argtypes = [I] * 4 + [P]
+        lib.croc_riccati_shape.restype = None
+        lib.croc_riccati_b1_shape.argtypes = [I] * 3 + [P]
+        lib.croc_riccati_b1_shape.restype = None
         _lib = lib
     return time.perf_counter() - t0
 
@@ -200,11 +206,23 @@ def _lane_strides(name, key, a, timed):
 # Kernel 2: Riccati backward pass
 # ---------------------------------------------------------------------------
 
+# csrc/riccati_pass.cuh: Quu's rows sit in registers (kRiccatiMaxNu) and one
+# lane solves two right-hand-side columns
+RICCATI_MAX_NU, RICCATI_MAX_NDX = 16, 63
+
+
+def _riccati_dims(name, ndx, nu):
+    if nu > RICCATI_MAX_NU or ndx > RICCATI_MAX_NDX:
+        raise ValueError(f"{name}: the kernel takes nu <= {RICCATI_MAX_NU} "
+                         f"and ndx <= {RICCATI_MAX_NDX}, got {nu}, {ndx}")
+
+
 def riccati_backward(derivs_l, dterm_l, fs_l, xreg, ureg):
     """CUDA twin of fused_scans.riccati_backward_lanes_plain."""
     T, ndx = derivs_l.Fx.shape[0], fs_l.shape[1]
     nu, B = derivs_l.Lu.shape[1], fs_l.shape[-1]
     dt, dev = fs_l.dtype, fs_l.device
+    _riccati_dims("riccati_backward", ndx, nu)
     d = derivs_l
     ins = dict(Fx=d.Fx, Fu=d.Fu, Lx=d.Lx, Lu=d.Lu, Lxx=d.Lxx, Lxu=d.Lxu,
                Luu=d.Luu, LxT=dterm_l.Lx, LxxT=dterm_l.Lxx, fs=fs_l,
@@ -272,10 +290,18 @@ def _depths(parents):
     return depth
 
 
-def tangent_scratch_elems(nj, nv, nu, nc, nr):
-    """Elements per node of node_kernel.cu's TanLay."""
+# rows of one dense cost block of the node kernel's Gauss-Newton phase
+NODE_JB_ROWS = 8
+
+
+def node_workspace_elems(nj, nv, nq, nu, nc, nr):
+    """Elements per node of node_kernel.cu's NodeLay: the primal's Lay, with
+    the tangent blocks over its last part (FI, FW, YI)."""
     nd = 2 * nv + nu
-    return 48 * nj + 30 * nv + (nv + nc + nr) * nd + 2 * nr
+    prim = primal_scratch_elems(nj, nv, nq, nu, nc, nr)
+    tan = (66 * nj + 30 * nv + (nv + nc + NODE_JB_ROWS) * nd + 2 * nr
+           + nd * (nd + 1) // 2 + nd + 73)
+    return max(prim, prim - (6 * nj * nv + 6 * nj + 4 * nc) + tan)
 
 
 class _Descriptor:
@@ -311,7 +337,7 @@ class _Descriptor:
         con_ints = []
         for c in contacts:
             con_ints += [c.fid, add(c.pref), add(c.gains), add(c.active)]
-        cost_ints, row = [], 0
+        cost_ints, row, dense = [], 0, 0
         for ci in seg.costs.items:
             ctype = _COST_TYPES.index(type(ci).__name__)
             act = ci.activation
@@ -320,6 +346,8 @@ class _Descriptor:
             ref_off = add(ci.cone.A if ctype == 5 else getattr(ci, ref))
             idx = getattr(ci, "fid", getattr(ci, "contact_idx", 0))
             nr = cost_nr(ci, ndx)
+            if ctype > 1:
+                dense = max(dense, nr)
             cost_ints += [ctype, _ACT_TYPES.index(type(act).__name__), idx,
                           add(ci.weight), add(ci.active), ref_off,
                           add(getattr(act, "weights", None)),
@@ -357,9 +385,11 @@ class _Descriptor:
         self.prim = primal_scratch_elems(nj, nv, nq, nu, nc, row)
         self.ws = rollout_workspace_elems(self.prim, nq + nv, nu, ndx)
         self.nmeta, self.nrobot, self.P = len(meta), robot.numel(), width[0]
-        self.tan = tangent_scratch_elems(nj, nv, nu, nc, row)
-        if ndx + nu > 64:
-            raise ValueError("the node kernel takes ndx + nu <= 64")
+        self.node_ws = node_workspace_elems(nj, nv, nq, nu, nc, row)
+        if ndx + nu > 64 or dense > NODE_JB_ROWS:
+            raise ValueError("the node kernel takes ndx + nu <= 64 and at "
+                             f"most {NODE_JB_ROWS} rows a cost term (other "
+                             "than state and control)")
 
 
 _DESC = collections.OrderedDict()
@@ -403,18 +433,41 @@ def node_calc_both(seg, x_l, u_l):
     Fx, Fu, Lx, Lu = e(ndx, ndx), e(ndx, nu), e(ndx), e(nu)
     Lxx, Lxu, Luu, xnext, cost = e(ndx, ndx), e(ndx, nu), e(nu, nu), \
         e(desc.nx), e()
-    scratch = e(desc.prim + desc.tan)
     _launch("croc_node", dt, dev,
-            N, B, _ptr(desc.meta), _ptr(desc.robot), _ptr(desc.par),
-            _ptr(x_l), _ptr(u_l),
-            *[_ptr(t) for t in (Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost,
-                                scratch)])
+            N, B, desc.nmeta, desc.nrobot, desc.node_ws, _ptr(desc.meta),
+            _ptr(desc.robot), _ptr(desc.par), _ptr(x_l), _ptr(u_l),
+            *[_ptr(t) for t in (Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost)])
     node_calc_both.launches += 1
     return (NodeDerivs(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu,
                        Luu=Luu), xnext, cost)
 
 
 node_calc_both.launches = 0
+
+
+def node_launch_shape(seg, N, dtype, device=None):
+    """(CTAs, threads per CTA, nodes per CTA, dynamic shared memory bytes)
+    of kernel 1's launch over N nodes on ``device``'s card, from the
+    launcher itself (builds the library)."""
+    desc = descriptor(seg, torch.device("cpu"), dtype)
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = _fn("croc_node", dtype, "_shape")(N, desc.nmeta, desc.nrobot,
+                                                desc.node_ws, out)
+    if err != 0:
+        raise RuntimeError(f"croc_node_shape: CUDA error {err}")
+    return tuple(out)
+
+
+def riccati_launch_shape(B, ndx, nu, dtype):
+    """(CTAs, threads per CTA, dynamic shared memory bytes) of kernel 2's
+    launch at B problems and of kernel 4's launch, from the launchers."""
+    build()
+    elem = torch.tensor([], dtype=dtype).element_size()
+    k2, k4 = (ctypes.c_int * 3)(), (ctypes.c_int * 3)()
+    _lib.croc_riccati_shape(B, ndx, nu, elem, k2)
+    _lib.croc_riccati_b1_shape(ndx, nu, elem, k4)
+    return tuple(k2), tuple(k4)
 
 
 # ---------------------------------------------------------------------------
@@ -473,6 +526,7 @@ def riccati_backward_b1(derivs, dterm, fs, xreg, ureg):
     T, ndx = derivs.Fx.shape[0], fs.shape[1]
     nu = derivs.Lu.shape[1]
     dt, dev = fs.dtype, fs.device
+    _riccati_dims("riccati_backward_b1", ndx, nu)
     d = derivs
     ins = dict(Fx=d.Fx, Fu=d.Fu, Lx=d.Lx, Lu=d.Lu, Lxx=d.Lxx, Lxu=d.Lxu,
                Luu=d.Luu, LxT=dterm.Lx, LxxT=dterm.Lxx, fs=fs)

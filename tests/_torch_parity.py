@@ -14,6 +14,8 @@ import functools
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import types
 
 import numpy as np
@@ -91,7 +93,13 @@ def _no_persistent_cache():
 
 
 _SOLVE_CHILD = """
-import dataclasses, sys
+import ctypes, dataclasses, os, signal, sys
+# end with the test process that started it (PR_SET_PDEATHSIG), and yield
+# the CPU to the test workers
+ctypes.CDLL(None).prctl(1, int(signal.SIGKILL))
+if os.getppid() != int(sys.argv[4]):
+    sys.exit(1)
+os.nice(10)
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
@@ -124,17 +132,85 @@ np.savez(path, **leaves)
 """
 
 
+# Every (entry, maxiter) that the port's tests hand to ``solve_pair``
+SOLVE_PAIRS = (("solve_batch", 1), ("solve", 1), ("solve", 20))
+
+
+def _shared_dir():
+    """Under pytest-xdist, a directory that every worker of the session
+    finds from the session's id alone (so before any fixture runs); else
+    None."""
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if not uid:
+        return None
+    path = os.path.join(tempfile.gettempdir(), f"torch_solve_pairs_{uid}")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
 @pytest.fixture(scope="session")
 def solve_cache(tmp_path_factory):
     """The directory where ``solve_pair`` keeps its solutions: under
-    pytest-xdist the parent of the workers' base temporary directories,
-    which all workers of one session share; else the session's own."""
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent
-    path = base / "torch_solve_pairs"
+    pytest-xdist the session's shared directory (``_shared_dir``); else
+    the session's own temporary directory."""
+    shared = _shared_dir()
+    if shared:
+        return shared
+    path = tmp_path_factory.getbasetemp() / "torch_solve_pairs"
     path.mkdir(exist_ok=True)
     return str(path)
+
+
+def _compute(entry, maxiter, path):
+    """Run the child of ``solve_pair`` into ``path``; its stderr on
+    failure, else None."""
+    tmp = path + ".part.npz"
+    env = {k: v for k, v in os.environ.items()
+           if k != "PYTEST_XDIST_TESTRUNUID"}  # the child prefetches nothing
+    # one XLA:CPU thread: the child runs beside the test workers
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
+                        + " --xla_cpu_multi_thread_eigen=false").strip()
+    res = subprocess.run(
+        [sys.executable, "-c", _SOLVE_CHILD, entry, str(maxiter), tmp,
+         str(os.getpid())], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=1200)
+    if res.returncode != 0:
+        return res.stderr[-4000:] or f"exit code {res.returncode}"
+    os.replace(tmp, path)
+    return None
+
+
+def _prefetch(cache_dir):
+    """Take the lock of every pair of SOLVE_PAIRS that no worker has taken
+    and compute those pairs one after the other in a thread of this
+    process, releasing each lock as its pair is written: the children run
+    beside the session's other tests from its start, one at a time, and a
+    worker that needs a pair waits only for what is left of it.  A child
+    dies with its worker; a pair left undone is computed by ``solve_pair``
+    in the first worker that asks."""
+    held = []
+    for entry, maxiter in SOLVE_PAIRS:
+        path = os.path.join(cache_dir, f"{entry}_{maxiter}.npz")
+        lock = open(path + ".lock", "w")
+        try:
+            fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            lock.close()
+            continue
+        if os.path.exists(path):
+            lock.close()
+            continue
+        held.append((entry, maxiter, path, lock))
+
+    def run():
+        for entry, maxiter, path, lock in held:
+            try:
+                _compute(entry, maxiter, path)
+            finally:
+                lock.close()
+    if held:
+        threading.Thread(target=run, daemon=True,
+                         name="torch solve pairs").start()
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,24 +224,25 @@ def solve_pair(entry, maxiter, cache_dir):
     the multi-MB solver programs late in long test workers
     (tests/run_suite.sh), and the port's plain CPU solve is the longest
     torch work of the suite.  The solutions go to ``cache_dir`` (the
-    ``solve_cache`` fixture) under a file lock: the first worker of a
-    session to ask computes them, the others wait and read them."""
+    ``solve_cache`` fixture) under a file lock: under pytest-xdist the
+    pairs were started when this module was first imported
+    (``_prefetch``), so a worker waits at most for the rest of them; a
+    pair that is not there is computed by the first worker that asks."""
     path = os.path.join(cache_dir, f"{entry}_{maxiter}.npz")
     with open(path + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(path):
-            tmp = path + ".part.npz"
-            res = subprocess.run(
-                [sys.executable, "-c", _SOLVE_CHILD, entry, str(maxiter),
-                 tmp], cwd=REPO, capture_output=True, text=True,
-                timeout=1200)
-            if res.returncode != 0:
-                raise RuntimeError(f"{entry} failed:\n{res.stderr[-4000:]}")
-            os.replace(tmp, path)
+            err = _compute(entry, maxiter, path)
+            if err is not None:
+                raise RuntimeError(f"{entry} failed:\n{err}")
     with np.load(path) as z:
         return tuple(types.SimpleNamespace(**{
             k.split(".", 1)[1]: z[k] for k in z.files
             if k.startswith(tag + ".")}) for tag in ("ref", "out"))
+
+
+if _shared_dir():
+    _prefetch(_shared_dir())
 
 
 def describe(obj, path=""):

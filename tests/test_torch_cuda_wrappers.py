@@ -91,6 +91,33 @@ def test_lane_strides_of_solver_views():
         ck._lane_strides("r", "Fx", view.movedim(-1, 1), True)
 
 
+@pytest.mark.parametrize("ndx, nu", [(36, 17), (64, 12)])
+def test_riccati_wrappers_refuse_sizes_past_the_registers(ndx, nu):
+    """The Riccati kernels hold Quu's rows (nu ≤ 16) and two right-hand-side
+    columns a lane (ndx + 1 ≤ 64) in registers; the wrappers refuse larger
+    problems before anything is built or launched."""
+    from crocoddyl_tpu_torch.core.action import NodeDerivs
+    from crocoddyl_tpu_torch.ops import cuda_kernels as ck
+    T, B = 2, 3
+    e = torch.zeros
+    d = NodeDerivs(Fx=e(T, ndx, ndx, B), Fu=e(T, ndx, nu, B),
+                   Lx=e(T, ndx, B), Lu=e(T, nu, B), Lxx=e(T, ndx, ndx, B),
+                   Lxu=e(T, ndx, nu, B), Luu=e(T, nu, nu, B))
+    dT = NodeDerivs(Fx=None, Fu=None, Lx=e(ndx, B), Lu=None,
+                    Lxx=e(ndx, ndx, B), Lxu=None, Luu=None)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        ck.riccati_backward(d, dT, e(T + 1, ndx, B), e(B), e(B))
+    from crocoddyl_tpu_torch.utils.struct import tree_map
+    one = tree_map(lambda a: a[..., 0], d)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        ck.riccati_backward_b1(one, NodeDerivs(
+            Fx=None, Fu=None, Lx=e(ndx), Lu=None, Lxx=e(ndx, ndx), Lxu=None,
+            Luu=None), e(T + 1, ndx), 1e-9, 1e-9)
+    assert (ck.riccati_backward.launches, ck.riccati_backward_b1.launches) \
+        == (0, 0)
+    assert ck._lib is None
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers take CUDA tensors only; on CPU tensors they raise
     before building or launching anything."""

@@ -1,7 +1,7 @@
 """Node linearization: the port's plain version of kernel 1
 (``calc_both_lanes_plain``), and the per-node body of the CUDA kernel
-compiled for the host, vs the JAX lane body (``calc_both_lanes(...,
-"jnp")``), float64 on CPU.
+compiled for the host and run on a team of 1 and of 32 threads, vs the JAX
+lane body (``calc_both_lanes(..., "jnp")``), float64 on CPU.
 
 Tolerances: derivative fields within 1e-10 of each field's max-abs (both
 sides run the same closed-form math; only summation order and libm differ),
@@ -22,17 +22,78 @@ from tests._torch_parity import jax_node_case, max_rel, np_, t64, to_port
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "crocoddyl_tpu_torch", "csrc")
 
-# A host loop over the nodes around the CUDA kernel's per-node body.
+# A host loop over the nodes around the CUDA kernel's per-node body: each
+# node runs on a team of std::threads with a barrier and a shared buffer
+# for sums and broadcasts, its workspace filled with NaN first; then the
+# outputs are read off the workspace as the kernel's write pass does.
 _HOST_LOOP = """
-extern "C" void node_host_f64(
-    int N, int B, const int* meta, const double* robot, const double* par,
-    const double* x, const double* u, double* Fx, double* Fu, double* Lx,
-    double* Lu, double* Lxx, double* Lxu, double* Luu, double* xnext,
-    double* cost, double* scratch) {
+#include <barrier>
+#include <limits>
+#include <thread>
+#include <vector>
+
+namespace {
+struct HostTeam {
+  int l, n;
+  std::barrier<>* bar;
+  double* buf;
+  int lane() const { return l; }
+  int size() const { return n; }
+  void sync() const { bar->arrive_and_wait(); }
+  template <class S> S sum(S x) const {
+    buf[l] = x;
+    sync();
+    S s = 0;
+    for (int i = 0; i < n; ++i) s += buf[i];
+    sync();
+    return s;
+  }
+  template <class S> S bcast(S x) const {
+    if (l == 0) buf[0] = x;
+    sync();
+    const S r = buf[0];
+    sync();
+    return r;
+  }
+};
+}  // namespace
+
+// -1 if the workspace size differs from the kernel's layout
+extern "C" int node_host_f64(
+    int team, int N, int B, int ws, const int* meta, const double* robot,
+    const double* par, const double* x, const double* u, double* Fx,
+    double* Fu, double* Lx, double* Lu, double* Lxx, double* Lxu,
+    double* Luu, double* xnext, double* cost) {
   const croc::Desc<double> d{meta, robot};
-  for (int n = 0; n < N; ++n)
-    croc::node_one(n, N, B, d, par, x, u, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu,
-                   xnext, cost, scratch);
+  const croc::Lay L(d);
+  const croc::NodeLay G(d, L);
+  if (G.size != ws) return -1;
+  double* outs[croc::O_N] = {Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost};
+  const int nx = d.nq() + d.nv(), nu = d.nu();
+  std::vector<double> work(ws), buf(team);
+  const croc::Arr<double> W{work.data(), 1};
+  for (int n = 0; n < N; ++n) {
+    std::fill(work.begin(), work.end(),
+              std::numeric_limits<double>::quiet_NaN());
+    for (int i = 0; i < nx; ++i) work[L.x + i] = x[(long)i * N + n];
+    for (int i = 0; i < nu; ++i) work[L.u + i] = u[(long)i * N + n];
+    const double* kp = par + (long)(n / B) * d.P();
+    std::barrier<> bar(team);
+    std::vector<std::thread> lanes;
+    for (int l = 0; l < team; ++l)
+      lanes.emplace_back([&, l] {
+        croc::node_body(HostTeam{l, team, &bar, buf.data()}, d, kp, W);
+      });
+    for (auto& t : lanes) t.join();
+    for (int o = 0; o < croc::O_N; ++o) {
+      int R, C;
+      croc::node_out_shape(d, o, R, C);
+      for (int r = 0; r < R; ++r)
+        for (int c = 0; c < C; ++c)
+          outs[o][(long)(r * C + c) * N + n] = croc::node_out(d, L, G, kp[d.m[croc::H_DT]], W, o, r, c);
+    }
+  }
+  return 0;
 }
 """
 
@@ -111,24 +172,29 @@ def test_node_methods_match_lanes(case, knot):
 
 @pytest.fixture(scope="module")
 def node_host(tmp_path_factory):
-    """csrc/node_kernel.cu's per-node body (``node_one``), built for the
-    host by the C++ compiler that builds native/urdf_loader.cpp."""
+    """csrc/node_kernel.cu's per-node body (``node_body``, ``node_out``),
+    built for the host by the C++ compiler that builds
+    native/urdf_loader.cpp, with a team of std::threads."""
     cxx = shutil.which("g++") or shutil.which("c++")
     assert cxx, "a C++ compiler is needed (it also builds the URDF parser)"
     d = tmp_path_factory.mktemp("node_host")
     src, so = d / "node_host.cpp", d / "libnode_host.so"
     src.write_text(f'#include "{CSRC}/node_kernel.cu"\n' + _HOST_LOOP)
-    res = subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC",
-                          "-o", str(so), str(src)], capture_output=True,
-                         text=True, timeout=600)
+    res = subprocess.run([cxx, "-O1", "-std=c++20", "-pthread", "-shared",
+                          "-fPIC", "-o", str(so), str(src)],
+                         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr
     return ctypes.CDLL(str(so))
 
 
-def test_node_kernel_source_matches_jax(case, node_host):
-    """The CUDA node kernel's math (descriptor, closed-form tangents,
-    Gauss-Newton, chain rule), run on the host over the same nodes, against
-    the JAX lane code; dt=0 nodes give Fx = I and Fu = 0 exactly."""
+@pytest.mark.parametrize("team", [1, 32])
+def test_node_kernel_source_matches_jax(case, node_host, team):
+    """The CUDA node kernel's math (descriptor, team primal, closed-form
+    tangents over the lanes, Gauss-Newton by cost term, chain rule and the
+    write pass's output mapping), run on the host by a team of 1 and of 32
+    threads over the same nodes, against the JAX lane code; dt=0 nodes give
+    Fx = I and Fu = 0 exactly.  Also checks the workspace size against the
+    C++ layout."""
     from crocoddyl_tpu_torch.ops import cuda_kernels as ck
     seg, x, u, B, (d_ref, x_ref, c_ref) = case
     x, u = x.contiguous(), u.contiguous()
@@ -140,13 +206,14 @@ def test_node_kernel_source_matches_jax(case, node_host):
     out = dict(Fx=e(ndx, ndx), Fu=e(ndx, nu), Lx=e(ndx), Lu=e(nu),
                Lxx=e(ndx, ndx), Lxu=e(ndx, nu), Luu=e(nu, nu),
                xnext=e(desc.nx), cost=e())
-    scratch = e(desc.prim + desc.tan)
 
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr())
-    node_host.node_host_f64(N, B, ptr(desc.meta), ptr(desc.robot),
-                            ptr(desc.par), ptr(x), ptr(u),
-                            *[ptr(t) for t in out.values()], ptr(scratch))
+    fn = node_host.node_host_f64
+    fn.restype = ctypes.c_int
+    rc = fn(team, N, B, desc.node_ws, ptr(desc.meta), ptr(desc.robot),
+            ptr(desc.par), ptr(x), ptr(u), *[ptr(t) for t in out.values()])
+    assert rc == 0, "workspace size differs from the kernel's layout"
     for f in FIELDS:
         assert max_rel(getattr(d_ref, f), out[f]) < 1e-10, f
     assert max_rel(x_ref, out["xnext"]) < 1e-12

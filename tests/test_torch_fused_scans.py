@@ -11,8 +11,11 @@ Quu is not positive definite.
 
 The rollout kernels' step loop (csrc/rollout_step.cuh with node_math.cuh's
 team primal) is also built for the host with a team of std::threads, at
-team sizes 1 and 32, and held to the same JAX reference: a wrong
-partition, index or missing sync shows up here before a chip run."""
+team sizes 1 and 32, and the Riccati kernels' CTA body
+(csrc/riccati_pass.cuh) on a CTA of 64 std::threads (two warps: warp 0
+factors Quu with lane shuffles while the other forms Qxx); both are held
+to the same JAX references: a wrong partition, index or missing sync shows
+up here before a chip run."""
 
 import ctypes
 import functools
@@ -111,6 +114,113 @@ def _lanes(a, B):
     return np.moveaxis(a.reshape(a.shape[:-1] + (-1, B)), -2, 0)
 
 
+# A host loop over the problems around the Riccati kernels' CTA body: each
+# problem runs on a CTA of std::threads with a barrier, a 32-thread barrier
+# and a shared buffer for the shuffles of warp 0, and the copies of step
+# blocks happen at once.
+_RICCATI_HOST = """
+#include <atomic>
+#include <barrier>
+#include <thread>
+#include <vector>
+
+namespace {
+struct HostCta {
+  int t, n;
+  std::barrier<>* bar;
+  std::barrier<>* wbar;
+  double* buf;
+  std::atomic<int>* flag;
+  int tid() const { return t; }
+  int size() const { return n; }
+  void sync() const { bar->arrive_and_wait(); }
+  bool any(bool p) const {
+    if (p) flag->store(1);
+    sync();
+    const bool r = flag->load() != 0;
+    sync();
+    return r;
+  }
+  void wsync() const { wbar->arrive_and_wait(); }
+  template <class S> S shfl(S x, int src) const {
+    buf[t] = x;
+    wbar->arrive_and_wait();
+    const S r = buf[src];
+    wbar->arrive_and_wait();
+    return r;
+  }
+};
+
+struct HostPipe {
+  const HostCta* c;
+  template <class T> void copy(T* dst, const T* src) const { *dst = *src; }
+  void commit() const {}
+  void wait() const { c->sync(); }
+};
+}  // namespace
+
+template <int NU>
+void riccati_problems(
+    int team, int Tn, int B, int ndx, int nu, const long long* strides,
+    const double* Fx, const double* Fu, const double* Lx, const double* Lu,
+    const double* Lxx, const double* Lxu, const double* Luu,
+    const double* LxT, const double* LxxT, const double* fs,
+    const double* xreg, const double* ureg, double* Vx, double* Vxx,
+    double* Qu, double* k, double* K, double* Quuk, unsigned char* failed) {
+  croc::LaneStrides S;
+  for (int i = 0; i < 10; ++i) {
+    S.ts[i] = strides[2 * i];
+    S.es[i] = strides[2 * i + 1];
+  }
+  for (int b = 0; b < B; ++b) {
+    std::vector<double> sm(croc::riccati_smem(ndx, nu, 1)), buf(32);
+    std::barrier<> bar(team), wbar(32);
+    std::atomic<int> flag{0};
+    std::vector<std::thread> threads;
+    for (int l = 0; l < team; ++l)
+      threads.emplace_back([&, l] {
+        const HostCta cta{l, team, &bar, &wbar, buf.data(), &flag};
+        croc::riccati_cta<double, NU>(cta, HostPipe{&cta}, Tn, B, b, ndx, nu,
+                                      S, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT,
+                                      LxxT, fs, xreg[b], ureg[b], Vx, Vxx,
+                                      Qu, k, K, Quuk, failed, sm.data());
+      });
+    for (auto& t : threads) t.join();
+  }
+}
+
+// the factor's register rows padded to NU = 12 or 16
+extern "C" void riccati_host_f64(
+    int NU, int team, int Tn, int B, int ndx, int nu, const long long* strides,
+    const double* Fx, const double* Fu, const double* Lx, const double* Lu,
+    const double* Lxx, const double* Lxu, const double* Luu,
+    const double* LxT, const double* LxxT, const double* fs,
+    const double* xreg, const double* ureg, double* Vx, double* Vxx,
+    double* Qu, double* k, double* K, double* Quuk, unsigned char* failed) {
+  (NU == 12 ? riccati_problems<12> : riccati_problems<16>)(
+      team, Tn, B, ndx, nu, strides, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT,
+      LxxT, fs, xreg, ureg, Vx, Vxx, Qu, k, K, Quuk, failed);
+}
+"""
+
+RICCATI_OUT = ("Vx", "Vxx", "Qu", "k", "K", "Quuk")
+
+
+def _host_lib(tmp_path_factory, name, header, body):
+    """``header`` (a csrc file) with ``body`` appended, built for the host
+    by the C++ compiler that builds native/urdf_loader.cpp."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a C++ compiler is needed (it also builds the URDF parser)"
+    d = tmp_path_factory.mktemp(name)
+    src, so = d / f"{name}.cpp", d / f"lib{name}.so"
+    src.write_text(f'#include "{CSRC}/{header}"\n' + body)
+    res = subprocess.run([cxx, "-O1", "-std=c++20", "-pthread", "-shared",
+                          "-fPIC", "-o", str(so), str(src)],
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    return ctypes.CDLL(str(so))
+
+
 @pytest.fixture(scope="module")
 def riccati_case():
     return _riccati_case()
@@ -136,27 +246,101 @@ def _riccati_case():
     return jd, td, fs, B
 
 
-@pytest.mark.parametrize("nonpd", [False, True])
-def test_plain_riccati_matches_jax(riccati_case, nonpd):
-    from crocoddyl_tpu.ops import fused_scans as jfs
-    from crocoddyl_tpu_torch.ops import fused_scans as tfs
-    (jd, jterm), (td, tterm), fs, B = riccati_case
+def _regs(B, nonpd):
+    """(xreg, ureg) of the Riccati checks; with ``nonpd`` lane 0's Quu is
+    made indefinite."""
     xreg = np.full(B, 1e-9)
     ureg = xreg.copy()
     if nonpd:
         ureg[0] = -1e6
+    return xreg, ureg
+
+
+@functools.lru_cache(maxsize=None)
+def _riccati_ref(nonpd):
+    """JAX ``riccati_backward_lanes(..., interpret=True)`` on riccati_case,
+    as numpy arrays."""
+    from crocoddyl_tpu.ops import fused_scans as jfs
+    (jd, jterm), _, fs, B = _riccati_case()
+    xreg, ureg = _regs(B, nonpd)
     ref = jfs.riccati_backward_lanes(jd, jterm, jnp.asarray(fs),
                                      jnp.asarray(xreg), jnp.asarray(ureg),
                                      interpret=True)
+    return tuple(np.asarray(a) for a in ref)
+
+
+def _check_riccati(ref, out, nonpd):
+    """Failure flags equal (lane 0 fails iff ``nonpd``); the other outputs
+    on the lanes that did not fail, k and K within 1e-8 and the rest within
+    1e-10 of their max-abs."""
+    np.testing.assert_array_equal(ref[-1], np_(out[-1]).astype(bool))
+    assert bool(np_(out[-1])[0]) == nonpd
+    ok = ~ref[-1]
+    for name, a, b in zip(RICCATI_OUT, ref[:-1], out[:-1]):
+        tol = 1e-8 if name in ("k", "K") else 1e-10
+        assert max_rel(a[..., ok], np_(b)[..., ok]) < tol, name
+
+
+@pytest.mark.parametrize("nonpd", [False, True])
+def test_plain_riccati_matches_jax(riccati_case, nonpd):
+    from crocoddyl_tpu_torch.ops import fused_scans as tfs
+    _, (td, tterm), fs, B = riccati_case
+    xreg, ureg = _regs(B, nonpd)
     out = tfs.riccati_backward_lanes(td, tterm, t64(fs), t64(xreg),
                                      t64(ureg))
-    np.testing.assert_array_equal(np.asarray(ref[-1]), np_(out[-1]))
-    assert bool(np_(out[-1])[0]) == nonpd
-    ok = ~np.asarray(ref[-1])
-    names = ("Vx", "Vxx", "Qu", "k", "K", "Quuk")
-    for name, a, b in zip(names, ref[:-1], out[:-1]):
-        tol = 1e-8 if name in ("k", "K") else 1e-10
-        assert max_rel(np.asarray(a)[..., ok], np_(b)[..., ok]) < tol, name
+    _check_riccati(_riccati_ref(nonpd), out, nonpd)
+
+
+@pytest.fixture(scope="module")
+def riccati_host(tmp_path_factory):
+    """csrc/riccati_pass.cuh (the Riccati kernels' CTA body) built for the
+    host, with a CTA of std::threads."""
+    return _host_lib(tmp_path_factory, "riccati_host", "riccati_pass.cuh",
+                     _RICCATI_HOST)
+
+
+@pytest.mark.parametrize("pad", [12, 16])
+@pytest.mark.parametrize("nonpd", [False, True])
+def test_riccati_kernel_source_matches_jax(riccati_case, riccati_host,
+                                           nonpd, pad):
+    """The Riccati kernels' CTA body (prefetched step blocks, the Cholesky
+    and the gains' solves on warp 0's lane shuffles, with the factor's
+    register rows at nu = 12 and padded to 16), run on the host by a CTA of
+    64 threads over the B=3 problems, against the JAX lane pass and
+    the port's plain version: failure flags equal, outputs within the
+    tolerances of test_plain_riccati_matches_jax of both.  (Vx sums terms
+    of Vxx·f up to ~1e3 times its own max-abs, so a summation order other
+    than the plain version's moves it by ~1e-11 of its max-abs.)"""
+    from crocoddyl_tpu_torch.ops import cuda_kernels as ck
+    from crocoddyl_tpu_torch.ops import fused_scans as tfs
+    _, (td, tterm), fs, B = riccati_case
+    xreg, ureg = _regs(B, nonpd)
+    ins = dict(Fx=td.Fx, Fu=td.Fu, Lx=td.Lx, Lu=td.Lu, Lxx=td.Lxx,
+               Lxu=td.Lxu, Luu=td.Luu, LxT=tterm.Lx, LxxT=tterm.Lxx,
+               fs=t64(fs))
+    strides = np.array([s for key, a in ins.items()
+                        for s in ck._lane_strides(
+                            "riccati_host", key, a,
+                            key not in ("LxT", "LxxT"))], dtype=np.int64)
+    T, ndx, nu = td.Fx.shape[0], td.Fx.shape[1], td.Lu.shape[1]
+
+    def e(*s):
+        return torch.zeros(s, dtype=torch.float64)
+    out = dict(Vx=e(T + 1, ndx, B), Vxx=e(T + 1, ndx, ndx, B),
+               Qu=e(T, nu, B), k=e(T, nu, B), K=e(T, nu, ndx, B),
+               Quuk=e(T, nu, B), failed=torch.zeros(B, dtype=torch.uint8))
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+    regs = [t64(xreg), t64(ureg)]
+    riccati_host.riccati_host_f64(
+        pad, 64, T, B, ndx, nu, strides.ctypes.data_as(ctypes.c_void_p),
+        *[ptr(a) for a in ins.values()], *[ptr(r) for r in regs],
+        *[ptr(t) for t in out.values()])
+    got = tuple(out.values())
+    _check_riccati(_riccati_ref(nonpd), got, nonpd)
+    plain = tfs.riccati_backward_lanes_plain(td, tterm, t64(fs), *regs)
+    _check_riccati(tuple(np_(a) for a in plain), got, nonpd)
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,18 +381,9 @@ def test_plain_rollout_matches_jax(alpha):
 @pytest.fixture(scope="module")
 def rollout_host(tmp_path_factory):
     """csrc/rollout_kernel.cu (the rollout step loop and the team primal)
-    built for the host by the C++ compiler that builds
-    native/urdf_loader.cpp, with a team of std::threads."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    assert cxx, "a C++ compiler is needed (it also builds the URDF parser)"
-    d = tmp_path_factory.mktemp("rollout_host")
-    src, so = d / "rollout_host.cpp", d / "librollout_host.so"
-    src.write_text(f'#include "{CSRC}/rollout_kernel.cu"\n' + _ROLLOUT_HOST)
-    res = subprocess.run([cxx, "-O1", "-std=c++20", "-pthread", "-shared",
-                          "-fPIC", "-o", str(so), str(src)],
-                         capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr
-    return ctypes.CDLL(str(so))
+    built for the host, with a team of std::threads."""
+    return _host_lib(tmp_path_factory, "rollout_host", "rollout_kernel.cu",
+                     _ROLLOUT_HOST)
 
 
 @pytest.mark.parametrize("team", [1, 32])
