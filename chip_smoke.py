@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's two paths and the rest of ``solve`` once on one
+NVIDIA GPU.
 
 Phases (any failure exits non-zero; each prints its seconds):
 
@@ -21,23 +22,38 @@ Phases (any failure exits non-zero; each prints its seconds):
 4. batch lane: ``solve_batch(maxiter=1)`` on the ANYmal walk (T=108,
    B=256) through the kernels in float32 (launch counts, finite costs),
    then the float64 kernel path against the float64 plain path (same
-   decisions);
+   decisions); the float32 plain step's time (one run);
 5. b=1 lane: ``solve(maxiter=1)``, the MPC replan, on the same walk from
    the quasi-static warm start through kernels 1, 4 and 5 in float32
    (launch counts, finite cost); float64 kernel path against plain path
    (same decisions); ``solve(maxiter=20)`` on the reduced walk, kernel
    path against plain path (same decisions); ``solve(maxiter=50)`` at
    T=108 converges and becomes the steady-state warm start;
-6. timing: CUDA events, one warm-up, median of 5 runs: the batch step, the
+6. solver surface: three replans of the T=108 walk through ``solve`` in
+   float32: Box-FDDP with the URDF's effort limits from the rollout of
+   the quasi-static controls (kernel 1 and the generic passes: kernels 4
+   and 5 must not run; the BoxQP solves' iterations and the controls on a
+   bound), DDP and the default ``SolverSettings`` (kernels 1, 4 and 5),
+   no plain call on any; each in float64 against the plain path (same
+   decisions); a binding Box-FDDP replan (0.15 × the limits, from the
+   rollout of the clamped quasi-static controls) on the reduced walk,
+   kernel against plain path; the unicycle anchor, FDDP and
+   Box-FDDP, on the card against the CPU; the three float32 times (CUDA
+   events, one warm-up, median of 3);
+7. timing: CUDA events, one warm-up, median of 5 runs: the batch step, the
    cold and the steady-state b=1 replan, and each kernel beside its plain
-   version at its lane's shapes;
-7. profile: one float32 batch step and one float32 cold replan under
-   ``torch.profiler``: each kernel's device time, the rest of the device
-   time (ATen glue), the idle share of the wall time and the stream syncs
-   (chiprun_out/chip_smoke/profile.json and profile_b1.json).
+   version (one run, no warm-up: a plain rollout takes seconds) at its
+   lane's shapes;
+8. profile: one float32 batch step, one float32 cold replan and one
+   float32 box replan under ``torch.profiler``: each kernel's device time,
+   the rest of the device time (ATen glue), the idle share of the wall
+   time and the stream syncs (chiprun_out/chip_smoke/profile.json,
+   profile_b1.json and profile_box.json); the box replan's host-clock
+   split into linearization, backward passes and trial rollouts.
 
 The line before the last two is the ``kernels`` JSON object: for each of
-the five kernels its launches on its lane's main path, its error against
+the five kernels its launches on its lane's main path (and on each replan
+of phase 6, ``launches_surface``), its error against
 the plain version, its time and the plain version's, and its bound: the
 larger of its bytes (inputs read once, outputs written once) over 3.35
 TB/s and its operations over 67 TFLOP/s (float32 outside the tensor cores;
@@ -529,9 +545,11 @@ def plain_calls():
     return [f.calls for f in (fn.calc_both_lanes_plain,) + fsc.PLAIN]
 
 
-def cuda_time(torch, fn, runs=5):
-    """Median milliseconds of ``fn`` over ``runs`` runs after one warm-up."""
-    fn()
+def cuda_time(torch, fn, runs=5, warmup=True):
+    """Median milliseconds of ``fn`` over ``runs`` runs, after one warm-up
+    unless the caller ran ``fn`` already (``warmup=False``)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(runs):
@@ -545,14 +563,16 @@ def cuda_time(torch, fn, runs=5):
     return statistics.median(ts)
 
 
-def profile_step(torch, step, keys):
-    """Device-time breakdown of one ``step()`` under torch.profiler: ms per
-    kernel of the path (a device event whose name holds ``{key}_kernel``),
-    the other device time (glue), the device total, the wall time and its
-    idle share; None if the trace holds no device time."""
+def profile_step(torch, step, keys, warmup=True):
+    """Device-time breakdown of one ``step()`` under torch.profiler (after a
+    warm-up run unless ``warmup=False``): ms per kernel of the path (a
+    device event whose name holds ``{key}_kernel``), the other device time
+    (glue), the device total, the wall time and its idle share; None if
+    the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    step()
+    if warmup:
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -562,17 +582,20 @@ def profile_step(torch, step, keys):
         wall = (time.perf_counter() - t0) * 1e3
     kern = {k: 0.0 for k in keys}
     total, glue_n, syncs, h2d = 0.0, 0, 0, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU:
-            syncs += e.name == "cudaStreamSynchronize"
+    # the raw events: ``prof.events()`` parses each into a Python object
+    # (~80 µs an event), minutes for the ~3M events of a box replan
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            syncs += name == "cudaStreamSynchronize"
             continue
-        if getattr(e, "is_user_annotation", False):
+        if e.is_user_annotation():
             continue
-        ms = e.time_range.elapsed_us() / 1e3
+        ms = e.duration_ns() / 1e6
         total += ms
-        h2d += "HtoD" in e.name
+        h2d += "HtoD" in name
         for k in kern:
-            if f"{k}_kernel" in e.name:
+            if f"{k}_kernel" in name:
                 kern[k] += ms
                 break
         else:
@@ -584,6 +607,118 @@ def profile_step(torch, step, keys):
             "device_ms": total, "wall_ms": wall,
             "idle_ms": wall - total, "idle_share": (wall - total) / wall,
             "stream_syncs": syncs, "h2d_copies": h2d}
+
+
+# The Box-FDDP replans' cost is held to 1e-8 or to SENS_FACTOR times the
+# plain path's own sensitivity, whichever is larger: at the URDF's limits
+# most BoxQPs of the walk run to maxiter (a clamped control keeps max|g|
+# above th_grad) and the backward pass then moves with the rounding of its
+# inputs, so a change of the node derivatives as small as the node kernel's
+# float64 error (DERIV_EPS relative) moves the replan's cost by more than
+# 1e-8 (the JAX package's box pass moves as much).  The sensitivity is the
+# plain path's cost change when its node derivatives are multiplied by
+# (1 + DERIV_EPS·N(0, 1)), measured in the same run.
+DERIV_EPS = 1e-14
+SENS_FACTOR = 4.0
+
+
+class perturbed_derivs:
+    """Within the block, the solvers' node derivatives are multiplied by
+    (1 + eps·N(0, 1)), drawn from a generator seeded on their device."""
+
+    def __init__(self, torch, eps, seed=0):
+        self.torch, self.eps, self.seed = torch, eps, seed
+
+    def __enter__(self):
+        from crocoddyl_tpu_torch.core.solvers import fddp as tfddp
+        from crocoddyl_tpu_torch.utils.struct import tree_map
+        torch, eps = self.torch, self.eps
+        self.mod, self.orig = tfddp, tfddp._calc_diff
+
+        def calc_diff(*a, **k):
+            d, dterm, fs, cost = self.orig(*a, **k)
+            g = torch.Generator(device=fs.device).manual_seed(self.seed)
+            d = tree_map(lambda l: l * (1 + eps * torch.randn(
+                l.shape, generator=g, dtype=l.dtype, device=l.device)), d)
+            return d, dterm, fs, cost
+        tfddp._calc_diff = calc_diff
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._calc_diff = self.orig
+
+
+def box_cost_tol(torch, run, plain_cost):
+    """(tolerance, sensitivity) of a Box-FDDP replan's kernel-against-plain
+    cost: ``run()`` once more on the plain path with perturbed node
+    derivatives (see DERIV_EPS)."""
+    with plain_path(), perturbed_derivs(torch, DERIV_EPS):
+        pert = run()
+    sens = float((pert.cost - plain_cost).abs() / plain_cost.abs())
+    return max(1e-8, SENS_FACTOR * sens), sens
+
+
+class record_qp:
+    """Within the block, every BoxQP solve's iteration count and free set
+    are kept (device tensors, read after the run): the solver reads
+    neither, so the run is the same."""
+
+    def __enter__(self):
+        from crocoddyl_tpu_torch.core.solvers import boxqp
+        self.mod, self.orig, self.out = boxqp, boxqp.solve, []
+
+        def rec(*a, **k):
+            sol = self.orig(*a, **k)
+            self.out.append((sol.iterations, sol.free))
+            return sol
+        boxqp.solve = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.solve = self.orig
+
+    def summary(self, torch, T):
+        """(QP solves, total, mean and largest iteration count, clamped
+        controls in the last T solves: the final backward pass)."""
+        if not self.out:
+            return 0, 0, 0.0, 0, 0
+        its = torch.stack([i for i, _ in self.out]).cpu()
+        clamped = int(sum(int((~f).sum()) for _, f in self.out[-T:]))
+        return (len(self.out), int(its.sum()), float(its.double().mean()),
+                int(its.max()), clamped)
+
+
+def host_split(torch, step):
+    """Wall milliseconds of one ``step()`` and of the solver's
+    linearizations (``_calc_diff``: kernel 1 and the gaps), generic
+    backward passes (with their BoxQPs) and generic trial rollouts, each
+    timed between device syncs on the host clock (the rest is the line
+    search's decisions and glue)."""
+    from crocoddyl_tpu_torch.core.solvers import fddp as tfddp
+    acc = {"_calc_diff": 0.0, "_backward_pass": 0.0, "_forward_pass": 0.0}
+    saved = {n: getattr(tfddp, n) for n in acc}
+
+    def timed(name, f):
+        def w(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **k)
+            torch.cuda.synchronize()
+            acc[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return w
+    for n, f in saved.items():
+        setattr(tfddp, n, timed(n, f))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, f in saved.items():
+            setattr(tfddp, n, f)
+    return wall, acc
 
 
 def main():
@@ -617,7 +752,7 @@ def main():
     # ---- 1. card --------------------------------------------------------
     card = card_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[card] {card}")
+    log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -693,7 +828,9 @@ def main():
         ref64 = step(p64, f64)
         torch.cuda.synchronize()
         plain64_s = time.perf_counter() - t0
-        plain32_ms = cuda_time(torch, lambda: step(p32, f32))
+        # one run: the plain step takes seconds, and nothing in it warms
+        plain32_ms = cuda_time(torch, lambda: step(p32, f32), runs=1,
+                               warmup=False)
     need(torch.equal(k64.iter, ref64.iter), "iter differs")
     need(torch.equal(k64.steplength, ref64.steplength),
          "steplength differs")
@@ -769,7 +906,152 @@ def main():
     xs_w, us_w = conv.xs.cpu(), conv.us.cpu()
     phase_done("b=1")
 
-    # ---- 6. timing ------------------------------------------------------
+    # ---- 6. solver surface ----------------------------------------------
+    # Box-FDDP with the URDF's effort limits from the rollout of the
+    # quasi-static controls (feasible: the box gains apply once the
+    # candidate is), DDP and the default settings from the quasi-static
+    # warm start
+    from crocoddyl_tpu_torch import (box_fddp_settings, ddp_settings,
+                                     replicate_model)
+    from crocoddyl_tpu_torch.core.problem import ShootingProblem
+    from crocoddyl_tpu_torch.models.unicycle import UnicycleModel
+    lim = prob.state.model.effort_limit[6:]
+    xs_feas = prob.rollout(us0)
+    surface = {
+        "box": (box_fddp_settings(maxiter=1), xs_feas, us0,
+                dict(is_feasible=True, u_lb=-lim, u_ub=lim)),
+        "ddp": (ddp_settings(maxiter=1, parallel_linesearch=False,
+                             record_trace=False), xs0, us0, {}),
+        "default": (SolverSettings(maxiter=1), xs0, us0, {})}
+
+    def run_surface(name, p, dt, table=surface):
+        st, xs_s, us_s, kw = table[name]
+        return solve(p, xs_s.to(dev, dt), us_s.to(dev, dt), st, device=dev,
+                     **kw)
+
+    launches_surface = {}
+    for name in surface:
+        reset_counts()
+        with record_qp() as qp:
+            sol_s = run_surface(name, p32, f32)
+            torch.cuda.synchronize()
+        got = {"node": ck.node_calc_both.launches,
+               "riccati_b1": ck.riccati_backward_b1.launches,
+               "rollout_b1": ck.trial_rollout_b1.launches}
+        launches_surface[name] = {w.__name__: w.launches
+                                  for w in ck.WRAPPERS}
+        log(f"[surface] f32 T={T} {name} replan: launches {got}, plain "
+            f"calls {plain_calls()}, cost {float(sol_s.cost):.6e}, "
+            f"steplength {float(sol_s.steplength)}, xreg "
+            f"{float(sol_s.xreg):.1e}, feasible {bool(sol_s.is_feasible)}")
+        need(got["node"] > 0, f"{name}: node kernel not launched")
+        if name == "box":
+            need(got["riccati_b1"] == 0 and got["rollout_b1"] == 0,
+                 f"box: kernels 4/5 launched {got}")
+        else:
+            need(got["riccati_b1"] > 0 and got["rollout_b1"] > 0,
+                 f"{name}: kernels 4/5 not launched {got}")
+        need(not any(plain_calls()), f"{name}: plain versions ran")
+        need(bool(torch.isfinite(sol_s.cost)) and sol_s.us.shape == (T, nu),
+             f"{name}: solution")
+        need((sol_s.trace is not None) == (name != "ddp"), f"{name}: trace")
+        if name == "box":
+            n_qp, it_sum, it_mean, it_max, clamped = qp.summary(torch, T)
+            lim_d = lim.to(dev, f32)
+            on_b = int(((sol_s.us == lim_d) | (sol_s.us == -lim_d)).sum())
+            over = int((us0.abs() > lim).sum())
+            log(f"[surface] f32 box replan: {n_qp} BoxQP solves, "
+                f"{it_sum} iterations (mean {it_mean:.2f}, max {it_max}); "
+                f"{clamped} of {T * nu} controls clamped by the final "
+                f"pass's QPs, {on_b} returned controls on a bound, "
+                f"{over} quasi-static controls beyond the limits "
+                f"(|u| <= {float(lim.max()):.1f} N m)")
+    for name in surface:
+        k64s = run_surface(name, p64, f64)
+        with plain_path():
+            t0 = time.perf_counter()
+            r64s = run_surface(name, p64, f64)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        same(f"surface f64 {name}", k64s, r64s,
+             ("iter", "steplength", "is_feasible"))
+        rc = float((k64s.cost - r64s.cost).abs() / r64s.cost.abs())
+        tol, sens = 1e-8, None
+        if name == "box":
+            tol, sens = box_cost_tol(
+                torch, lambda: run_surface(name, p64, f64), r64s.cost)
+        log(f"[surface] f64 T={T} {name} replan kernel vs plain: iter "
+            f"{int(k64s.iter)}, steplength {float(k64s.steplength)}, "
+            f"feasible {bool(k64s.is_feasible)} in both, cost rtol "
+            f"{rc:.3e} (tol {tol:.1e}"
+            + ("" if sens is None else f"; plain path's cost moves "
+               f"{sens:.3e} under a {DERIV_EPS:.0e} change of its node "
+               f"derivatives") + f"; plain path {plain_s:.1f} s)")
+        need(rc <= tol, f"surface {name}: cost rtol {rc:.3e}")
+    # Box-FDDP on the reduced walk with bounds that bind: 0.15 x the URDF
+    # limits, as examples/boxfddp_vs_boxddp.py scales them, from the
+    # rollout of the quasi-static controls clamped to them
+    lim_s = 0.15 * small.state.model.effort_limit[6:]
+    us_t = torch.clamp(us0_s, -lim_s, lim_s)
+    tight = {"box": (box_fddp_settings(maxiter=1), small.rollout(us_t),
+                     us_t, dict(is_feasible=True, u_lb=-lim_s,
+                                u_ub=lim_s))}
+    with record_qp() as qp:
+        kb = run_surface("box", s64, f64, tight)
+    with plain_path():
+        pb = run_surface("box", s64, f64, tight)
+    same("surface f64 tight box (reduced walk)", kb, pb,
+         ("iter", "steplength", "is_feasible"))
+    n_qp, it_sum, _, it_max, clamped = qp.summary(torch, small.T)
+    rc = float((kb.cost - pb.cost).abs() / pb.cost.abs())
+    tol, sens = box_cost_tol(torch, lambda: run_surface(
+        "box", s64, f64, tight), pb.cost)
+    log(f"[surface] f64 Box-FDDP, reduced walk T={small.T}, |u| <= "
+        f"{float(lim_s.max()):.1f} N m: iter {int(kb.iter)}, steplength "
+        f"{float(kb.steplength)}, feasible {bool(kb.is_feasible)} in kernel "
+        f"and plain path, cost rtol {rc:.3e} (tol {tol:.1e}; sensitivity "
+        f"{sens:.3e}); {n_qp} BoxQP solves, {it_sum} iterations (max "
+        f"{it_max}), {clamped} controls clamped")
+    on_b = int((kb.us.abs() == lim_s.to(dev)).sum())
+    log(f"[surface] f64 tight box: {on_b} of {small.T * nu} returned "
+        f"controls on a bound")
+    need(rc <= tol, f"tight box: cost rtol {rc:.3e}")
+    need(clamped > 0 and on_b > 0, "tight box: no control on a bound")
+    # the unicycle anchor (T=20) on the card, FDDP and Box-FDDP |u| <= 1,
+    # against the same solves on the CPU
+    um = UnicycleModel()
+    uni = ShootingProblem(x0=torch.tensor([-1.0, -1.0, 1.0],
+                                          dtype=torch.float64),
+                          running=replicate_model(um, 20), terminal=um)
+    for tag, st, kw in (
+            ("FDDP", SolverSettings(maxiter=50), {}),
+            ("Box-FDDP |u| <= 1", box_fddp_settings(maxiter=50),
+             dict(u_lb=-torch.ones(2), u_ub=torch.ones(2)))):
+        on_card = solve(uni, settings=st, device=dev, **kw)
+        on_cpu = solve(uni, settings=st, device="cpu", **kw)
+        same(f"unicycle {tag}", on_card, on_cpu,
+             ("iter", "converged", "steplength", "is_feasible"))
+        rc = float((on_card.cost.cpu() - on_cpu.cost).abs()
+                   / on_cpu.cost.abs())
+        log(f"[surface] f64 unicycle T=20 {tag} on the card: converged "
+            f"{bool(on_card.converged)} in {int(on_card.iter)} iterations, "
+            f"cost {float(on_card.cost):.11f}, rtol {rc:.3e} to the CPU")
+        need(bool(on_card.converged) and rc <= 1e-9, f"unicycle {tag}")
+        if tag == "FDDP":
+            # the anchor of the verify notes: 9 iterations, 249.56089793…
+            need(int(on_card.iter) == 9
+                 and abs(float(on_card.cost) - 249.56089793082) < 1e-8,
+                 f"unicycle anchor: {float(on_card.cost)!r}")
+    surface_ms = {}
+    for name in surface:
+        # each replan ran above: no warm-up run
+        surface_ms[name] = cuda_time(torch, lambda: run_surface(
+            name, p32, f32), runs=3, warmup=False)
+        log(f"[surface] time f32 T={T} {name} replan: {surface_ms[name]:.2f}"
+            f" ms (median of 3)  ({card})")
+    phase_done("surface")
+
+    # ---- 7. timing ------------------------------------------------------
     kern32_ms = cuda_time(torch, lambda: step(p32, f32))
     log(f"[time] solve_batch maxiter=1 B={B_BENCH} T={T} f32: kernel path "
         f"{kern32_ms:.2f} ms ({B_BENCH / kern32_ms * 1e3:.1f} solves/s), "
@@ -839,15 +1121,23 @@ def main():
     ]
     kernels = []
     for name, src, rep, kfn, pfn, ins, n_ops, n_launch in rows:
-        ms, pms = cuda_time(torch, kfn), cuda_time(torch, pfn)
+        # the plain versions once: a plain rollout takes seconds
+        ms, pms = (cuda_time(torch, kfn),
+                   cuda_time(torch, pfn, runs=1, warmup=False))
         n_bytes = nbytes(torch, ins, kfn())
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         log(f"[time] {name} kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
             f"{b_ms:.6f} ms by {b_by} ({n_bytes} B, {n_ops} operations; "
             f"{100 * b_ms / ms:.3f} % of bound) (f32, main-path shapes)  "
             f"({card})")
+        fname = {"node": "node_calc_both", "riccati": "riccati_backward",
+                 "rollout": "trial_rollout",
+                 "riccati_b1": "riccati_backward_b1",
+                 "rollout_b1": "trial_rollout_b1"}[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n_launch,
+                        "launches_surface": {
+                            k: v[fname] for k, v in launches_surface.items()},
                         "max_abs_err": errs[name],
                         "max_abs_err_f64": errs64[name], "ms": ms,
                         "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
@@ -866,7 +1156,7 @@ def main():
                       max_abs_err_b1=errs["node_b1"])
     phase_done("timing")
 
-    # ---- 7. profile -----------------------------------------------------
+    # ---- 8. profile -----------------------------------------------------
     for tag, fname, fn_step, keys in (
             ("batch step", "profile.json", lambda: step(p32, f32),
              ("node", "riccati", "rollout")),
@@ -888,6 +1178,30 @@ def main():
             f"idle {prof['idle_ms']:.3f} ms "
             f"({100 * prof['idle_share']:.1f} %), {prof['stream_syncs']} "
             f"stream syncs, {prof['h2d_copies']} H2D copies  ({card})")
+    # the f32 box replan: device time under the profiler, then the host
+    # clock's split into linearization, backward passes and trials
+    prof = profile_step(torch, lambda: run_surface("box", p32, f32),
+                        ("node",), warmup=False)
+    if prof is None:
+        log(f"[profile] box replan: the trace holds no device time: not "
+            f"measured ({card})")
+    else:
+        prof["card"] = card
+        with open(os.path.join(OUT, "profile_box.json"), "w") as f:
+            json.dump(prof, f, indent=1)
+        log(f"[profile] one f32 box replan: node "
+            f"{prof['kernel_ms']['node']:.3f} ms, glue {prof['glue_ms']:.3f} ms ({prof['glue_events']} "
+            f"device events), device {prof['device_ms']:.3f} ms of wall "
+            f"{prof['wall_ms']:.3f} ms, idle {prof['idle_ms']:.3f} ms "
+            f"({100 * prof['idle_share']:.1f} %), {prof['stream_syncs']} "
+            f"stream syncs  ({card})")
+    wall, split = host_split(torch, lambda: run_surface("box", p32, f32))
+    rest = wall - sum(split.values())
+    log(f"[profile] one f32 box replan, host clock between syncs: wall "
+        f"{wall:.1f} ms; linearization (kernel 1, gaps) "
+        f"{split['_calc_diff']:.1f} ms, backward passes with BoxQP "
+        f"{split['_backward_pass']:.1f} ms, trial rollouts "
+        f"{split['_forward_pass']:.1f} ms, rest {rest:.1f} ms  ({card})")
     phase_done("profile")
     print(json.dumps({"kernels": kernels}))
     print(card)

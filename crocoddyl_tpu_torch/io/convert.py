@@ -24,15 +24,19 @@ import torch
 
 
 def _classes():
+    from ..core.manifolds import StateVector
     from ..core.problem import ShootingProblem
     from ..dynamics.model import RobotModel
     from ..dynamics.states import StateMultibody
+    from ..models.lqr import DiffLQRModel, LQRModel
     from ..models.multibody import activations, actuations, contacts, costs
     from ..models.multibody.frames import FrictionCone
     from ..models.multibody.nodes import CostStack, RigidBodyNode
+    from ..models.unicycle import UnicycleModel
     out = {c.__name__: c for c in (ShootingProblem, RobotModel,
                                    StateMultibody, FrictionCone, CostStack,
-                                   RigidBodyNode)}
+                                   RigidBodyNode, StateVector, UnicycleModel,
+                                   LQRModel, DiffLQRModel)}
     for mod in (activations, actuations, contacts, costs):
         for name in dir(mod):
             obj = getattr(mod, name)

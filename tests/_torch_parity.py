@@ -53,6 +53,17 @@ def jax_walk():
 
 
 @functools.lru_cache(maxsize=None)
+def jax_forward_pass():
+    """JAX ``fddp._forward_pass`` on the reduced walk from the warm start,
+    compiled once for the tests that hold the port's rollouts to it:
+    ``f(k, K, fs, alpha, u_lb, u_ub)`` (bounds of ±inf clamp nothing)."""
+    from crocoddyl_tpu.core.solvers import fddp
+    prob, xs0, us0, _ = jax_walk()
+    return jax.jit(lambda k, K, fs, alpha, lb, ub: fddp._forward_pass(
+        prob, xs0, us0, k, K, fs, alpha, lb, ub))
+
+
+@functools.lru_cache(maxsize=None)
 def torch_walk():
     """The same reduced walk built by the port's own factory."""
     from crocoddyl_tpu_torch.apps.gaits import QuadrupedGaitFactory

@@ -12,7 +12,8 @@ package, float64 on CPU, on the reduced ANYmal walk.
   start, both exits: identical decisions, cost rtol 1e-8, us within 1e-6,
   the direction fields and xs within 1e-8 of their max-abs (the gaps fs
   within 1e-8 of the states' max-abs, see ``_same_solution``);
-- the gate and the device rule of the entry points.
+- the gate (what ``solve`` still refuses) and the device rule of the
+  entry points.
 
 Each exit's JAX and port solves run once a session, together, in a fresh
 process (``solve_pair``), and each exit is one test, so that one worker
@@ -28,8 +29,8 @@ import jax.numpy as jnp
 
 from tests._torch_parity import _no_persistent_cache  # noqa: F401
 from tests._torch_parity import solve_cache  # noqa: F401
-from tests._torch_parity import (jax_walk, max_rel, np_, solve_pair, t64,
-                                 to_port)
+from tests._torch_parity import (jax_forward_pass, jax_walk, max_rel, np_,
+                                 solve_pair, t64, to_port)
 
 SEQ = dict(record_trace=False, parallel_linesearch=False)
 
@@ -79,7 +80,6 @@ def test_plain_rollout_fused_matches_forward_pass():
     """Kernel 5's plain version, then the terminal node as the solver adds
     it (integrate the last state, ``calc_terminal``), vs the JAX forward
     pass at α=0.5."""
-    from crocoddyl_tpu.core.solvers import fddp
     from crocoddyl_tpu_torch.ops import fused_scans as tfs
     prob, xs0, us0, _ = jax_walk()
     port = to_port(prob)
@@ -89,10 +89,9 @@ def test_plain_rollout_fused_matches_forward_pass():
     K = 0.01 * rng.standard_normal((T, nu, ndx))
     fs = 0.01 * rng.standard_normal((T + 1, ndx))
     alpha = 0.5
-    xs_ref, us_ref, cost_ref, failed_ref = jax.jit(
-        lambda: fddp._forward_pass(prob, xs0, us0, jnp.asarray(k),
-                                   jnp.asarray(K), jnp.asarray(fs),
-                                   alpha))()
+    inf = np.full((T, nu), np.inf)
+    xs_ref, us_ref, cost_ref, failed_ref = jax_forward_pass()(
+        *map(jnp.asarray, (k, K, fs, alpha, -inf, inf)))
     xs_r, us_r, x_last, cost_r, failed = tfs.trial_rollout_fused(
         port.segments[0], port.x0, t64(xs0), t64(us0), t64(k), t64(K),
         t64(fs), alpha)
@@ -140,21 +139,35 @@ def test_solve_multi_iteration_matches_jax(solve_cache):  # noqa: F811
                     "xreg", "ureg", "diverged"))
 
 
-@pytest.mark.parametrize("bad", [dict(box=True),
-                                 dict(parallel_linesearch=True),
-                                 dict(record_trace=True),
-                                 dict(feasibility_driven=False),
-                                 dict(ms_chunk=4)])
-def test_solve_gate_refuses(bad):
-    from crocoddyl_tpu_torch import SolverSettings, solve
+@pytest.mark.parametrize("case", ["ms_chunk", "ms_chunk_ddp", "two_segments",
+                                  "running_rk4", "terminal_rk4",
+                                  "box_without_bounds"])
+def test_solve_gate_refuses(case):
+    """What ``solve`` still refuses raises a ValueError that says why: the
+    multiple-shooting forward pass, several segments, a node the node
+    kernel does not admit that is not an ActionModel, a box solve without
+    bounds."""
+    from crocoddyl_tpu_torch import SolverSettings, box_fddp_settings, solve
     from crocoddyl_tpu_torch.core.solvers import fddp
     prob = to_port(jax_walk()[0])
-    assert fddp.supports(prob, SolverSettings(maxiter=1, **SEQ))
-    kw = dict(maxiter=1, **SEQ)
-    kw.update(bad)
-    assert not fddp.supports(prob, SolverSettings(**kw))
-    with pytest.raises(ValueError, match="unsupported"):
-        solve(prob, settings=SolverSettings(**kw), device="cpu")
+    settings = SolverSettings(maxiter=1, **SEQ)
+    assert fddp.supports(prob, settings)
+    match = "unsupported"
+    if case.startswith("ms_chunk"):
+        settings = settings.replace(ms_chunk=4, feasibility_driven=case
+                                    == "ms_chunk")
+    elif case == "two_segments":
+        prob = prob.replace(running=(prob.running, prob.running))
+    elif case == "running_rk4":
+        prob = prob.replace(running=prob.running.replace(integrator="rk4"))
+    elif case == "terminal_rk4":
+        prob = prob.replace(terminal=prob.terminal.replace(integrator="rk4"))
+    else:
+        settings = box_fddp_settings(maxiter=1)
+        match = "requires control bounds"
+    assert fddp.supports(prob, settings) == (case == "box_without_bounds")
+    with pytest.raises(ValueError, match=match):
+        solve(prob, settings=settings, device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["solve", "solve_batch"])
