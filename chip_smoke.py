@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths and the rest of ``solve`` once on one
-NVIDIA GPU.
+"""Drive the PyTorch port's two paths, the rest of ``solve``, the quadruped
+gaits and the MPC loop once on one NVIDIA GPU.
 
 Phases (any failure exits non-zero; each prints its seconds):
 
@@ -29,17 +29,19 @@ Phases (any failure exits non-zero; each prints its seconds):
    (same decisions); ``solve(maxiter=20)`` on the reduced walk, kernel
    path against plain path (same decisions); ``solve(maxiter=50)`` at
    T=108 converges and becomes the steady-state warm start;
-6. solver surface: three replans of the T=108 walk through ``solve`` in
+6. solver surface: four replans of the T=108 walk through ``solve`` in
    float32: Box-FDDP with the URDF's effort limits from the rollout of
    the quasi-static controls (kernel 1 and the generic passes: kernels 4
    and 5 must not run; the BoxQP solves' iterations and the controls on a
-   bound), DDP and the default ``SolverSettings`` (kernels 1, 4 and 5),
+   bound), the default ``SolverSettings(maxiter=1)`` (kernel 1 and the
+   generic passes), DDP and ``SolverSettings(fused_scans=True)`` with the
+   parallel line search and the trace (kernels 1, 4 and 5),
    no plain call on any; each in float64 against the plain path (same
    decisions); a binding Box-FDDP replan (0.15 × the limits, from the
    rollout of the clamped quasi-static controls) on the reduced walk,
    kernel against plain path; the unicycle anchor, FDDP and
-   Box-FDDP, on the card against the CPU; the three float32 times (CUDA
-   events, one warm-up, median of 3);
+   Box-FDDP, on the card against the CPU; the four float32 times (CUDA
+   events, no warm-up beyond the run above, median of 3);
 7. timing: CUDA events, one warm-up, median of 5 runs: the batch step, the
    cold and the steady-state b=1 replan, and each kernel beside its plain
    version (one run, no warm-up: a plain rollout takes seconds) at its
@@ -49,11 +51,27 @@ Phases (any failure exits non-zero; each prints its seconds):
    the rest of the device time (ATen glue), the idle share of the wall
    time and the stream syncs (chiprun_out/chip_smoke/profile.json,
    profile_b1.json and profile_box.json); the box replan's host-clock
-   split into linearization, backward passes and trial rollouts.
+   split into linearization, backward passes and trial rollouts;
+9. gaits and MPC: (a) the five gaits of examples/quadrupedal_gaits.py on
+   the programmatic quadruped (T = 108, 56, 62, 76, 61), each a float32
+   cold replan through kernels 1, 4 and 5 (launches, no plain call, finite
+   cost, median of 3), the jump and the trot in float64 against the plain
+   path (same decisions, cost rtol 1e-8), and the graft entry's walk
+   through ``solve_batch`` at B=2 in float32 (kernels 1 to 3); (b) the
+   quadruped anchors of tests/golden.json in float64 on the card, the
+   walk through kernels 1, 4 and 5 and the Box-FDDP walk through kernel 1
+   and the generic passes, with the bar of tests/test_examples_golden.py;
+   (c) the receding-horizon loop of examples/mpc_receding_horizon.py on
+   the T=108 walk in float32: a maxiter=60 plan, then 50 ticks of horizon
+   rotation, shifted warm start and maxiter=1 replan (tick latency p50 and
+   p90, the plant step timed apart, the kernel descriptors' share,
+   launches per tick, no divergence), and 3 float64 ticks against the
+   plain path (same decisions; cost and the plant's x0 rtol 1e-8).
 
 The line before the last two is the ``kernels`` JSON object: for each of
 the five kernels its launches on its lane's main path (and on each replan
-of phase 6, ``launches_surface``), its error against
+of phase 6, ``launches_surface``, and per MPC tick, ``launches_mpc``), its
+error against
 the plain version, its time and the plain version's, and its bound: the
 larger of its bytes (inputs read once, outputs written once) over 3.35
 TB/s and its operations over 67 TFLOP/s (float32 outside the tensor cores;
@@ -102,6 +120,10 @@ REG_F32 = 1.0
 # float32 rate outside the tensor cores (H100 SXM data sheet, 700 W)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# each kernel's wrapper in crocoddyl_tpu_torch/ops/cuda_kernels.py
+WRAPPER = {"node": "node_calc_both", "riccati": "riccati_backward",
+           "rollout": "trial_rollout", "riccati_b1": "riccati_backward_b1",
+           "rollout_b1": "trial_rollout_b1"}
 LIBRARY_NONE = ("no single PyTorch call computes it: a sequential "
                 "recursion or node model written for this solver")
 
@@ -501,6 +523,14 @@ def nbytes(torch, *trees):
                if isinstance(t, torch.Tensor))
 
 
+def same(tag, a, b, fields):
+    """Fail unless the solutions ``a`` and ``b`` agree in ``fields``."""
+    for fld in fields:
+        x, y = getattr(a, fld).cpu(), getattr(b, fld).cpu()
+        need(x.equal(y), f"{tag}: {fld} differs: {x.tolist()} vs "
+             f"{y.tolist()}")
+
+
 def bound_ms(n_bytes, n_ops):
     """(ms, what bounds it): the larger of bytes over the memory rate and
     operations over the float32 rate."""
@@ -721,6 +751,262 @@ def host_split(torch, step):
     return wall, acc
 
 
+# examples/quadrupedal_gaits.py:24-35, on robots.quadruped from
+# quadruped_standing_q: T = 108, 56, 62, 76 and 61
+GAITS = {
+    "walking": dict(step_length=0.25, step_height=0.15, dt=1e-2,
+                    step_knots=25, support_knots=2),
+    "trotting": dict(step_length=0.15, step_height=0.1, dt=1e-2,
+                     step_knots=25, support_knots=2),
+    "pacing": dict(step_length=0.15, step_height=0.1, dt=1e-2,
+                   step_knots=25, support_knots=5),
+    "bounding": dict(step_length=0.007, step_height=0.05, dt=1e-2,
+                     step_knots=25, support_knots=12),
+    "jumping": dict(jump_height=0.15, jump_length=[0.0, 0.3, 0.0], dt=1e-2,
+                    ground_knots=10, flying_knots=20),
+}
+# the gaits whose float64 replans are held to the plain path: the jump
+# (its flight knots have every contact inactive) and a gait that swings
+# two feet at once
+GAITS_F64 = ("jumping", "trotting")
+MPC_TICKS = 50      # examples/mpc_receding_horizon.py:65
+MPC_F64_TICKS = 3
+
+
+def gait_problem(torch, name):
+    """(problem, xs0, us0) of one of GAITS, float64 on the CPU, built by a
+    fresh factory, with the quasi-static warm start."""
+    from crocoddyl_tpu_torch.apps.gaits import QuadrupedGaitFactory
+    from crocoddyl_tpu_torch.dynamics import robots
+    m = robots.quadruped()
+    q0 = robots.quadruped_standing_q(m)
+    x0 = torch.cat([q0, torch.zeros(m.nv, dtype=torch.float64)])
+    fac = QuadrupedGaitFactory(m, FEET, default_q=q0)
+    prob = getattr(fac, f"{name}_problem")(x0, **GAITS[name])
+    xs0 = x0[None].expand(prob.T + 1, -1).clone()
+    return prob, xs0, prob.quasi_static(xs0)
+
+
+def b1_launches(ck):
+    """Launches of kernels 1, 4 and 5 since the counts were last zeroed."""
+    return {"node": ck.node_calc_both.launches,
+            "riccati_b1": ck.riccati_backward_b1.launches,
+            "rollout_b1": ck.trial_rollout_b1.launches}
+
+
+def run_gaits(torch, ck, dev, card):
+    """Phase 9a: each gait's float32 cold replan through kernels 1, 4 and 5
+    (launches, no plain call, finite cost; median of 3), the GAITS_F64
+    replans in float64 against the plain path, and the graft entry's
+    programmatic walk through ``solve_batch`` at B=2.  Returns {gait: ms}."""
+    from crocoddyl_tpu_torch import SolverSettings, solve, solve_batch
+    from crocoddyl_tpu_torch.apps.gaits import QuadrupedGaitFactory
+    from crocoddyl_tpu_torch.dynamics import robots
+    f32, f64 = torch.float32, torch.float64
+    st = SolverSettings(maxiter=1, fused_scans=True, parallel_linesearch=False,
+                        record_trace=False)
+    times = {}
+    for name in GAITS:
+        prob, xs0, us0 = gait_problem(torch, name)
+
+        def replan(dt, p=to_dev(torch, prob, dev, f32)):
+            return solve(p, xs0.to(dev, dt), us0.to(dev, dt), st,
+                         device=dev)
+        reset_counts()
+        sol = replan(f32)
+        torch.cuda.synchronize()
+        got = b1_launches(ck)
+        need(all(v > 0 for v in got.values()), f"{name}: launches {got}")
+        need(not any(plain_calls()), f"{name}: plain versions ran")
+        need(bool(torch.isfinite(sol.cost)), f"{name}: non-finite cost")
+        times[name] = cuda_time(torch, lambda: replan(f32), runs=3,
+                                warmup=False)
+        log(f"[gaits] f32 {name} T={prob.T} cold replan: {times[name]:.2f} ms "
+            f"(median of 3), launches {got}, cost {float(sol.cost):.6e}, "
+            f"steplength {float(sol.steplength)}, xreg "
+            f"{float(sol.xreg):.1e}  ({card})")
+        if name in GAITS_F64:
+            p64 = to_dev(torch, prob, dev, f64)
+            k64 = replan(f64, p64)
+            with plain_path():
+                r64 = replan(f64, p64)
+            same(f"{name} f64 replan", k64, r64,
+                 ("iter", "steplength", "is_feasible"))
+            rc = float((k64.cost - r64.cost).abs() / r64.cost.abs())
+            log(f"[gaits] f64 {name} replan kernel vs plain: iter "
+                f"{int(k64.iter)}, steplength {float(k64.steplength)}, "
+                f"feasible {bool(k64.is_feasible)} in both, cost rtol "
+                f"{rc:.3e}")
+            need(rc <= 1e-8, f"{name} f64 replan: cost rtol {rc:.3e}")
+    # __graft_entry__.py:14-27: the programmatic walk at step_knots=2,
+    # support_knots=1, built in float32, two initial states
+    m = robots.quadruped(dtype=f32)
+    q0 = robots.quadruped_standing_q(m, dtype=f32)
+    x0 = torch.cat([q0, torch.zeros(m.nv, dtype=f32)])
+    prob = QuadrupedGaitFactory(m, FEET, default_q=q0).walking_problem(
+        x0, 0.1, 0.05, 1e-2, step_knots=2, support_knots=1)
+    xs0 = x0[None].expand(prob.T + 1, -1).clone()
+    us0 = prob.quasi_static(xs0)
+    x0s = x0[None].repeat(2, 1)
+    x0s[1, m.nq] += 0.01
+    reset_counts()
+    sol = solve_batch(prob, x0s.to(dev), xs_init=xs0.to(dev),
+                      us_init=us0.to(dev), settings=SolverSettings(
+                          maxiter=1, record_trace=False,
+                          parallel_linesearch=False), device=dev)
+    torch.cuda.synchronize()
+    got = {"node": ck.node_calc_both.launches,
+           "riccati": ck.riccati_backward.launches,
+           "rollout": ck.trial_rollout.launches}
+    log(f"[gaits] f32 graft-entry walk T={prob.T} solve_batch B=2: launches "
+        f"{got}, costs {sol.cost.tolist()}")
+    need(all(v > 0 for v in got.values()), f"graft entry: launches {got}")
+    need(not any(plain_calls()), "graft entry: plain versions ran")
+    need(sol.cost.dtype == f32 and bool(torch.isfinite(sol.cost).all()),
+         "graft entry: costs")
+    return times
+
+
+def run_goldens(torch, dev):
+    """Phase 9b: the two quadruped anchors of tests/golden.json solved on
+    the card in float64, with the bar of tests/test_examples_golden.py:51-60
+    (``converged`` equal, iterations within 1, cost rtol 1e-5)."""
+    from crocoddyl_tpu_torch import SolverSettings, box_fddp_settings, solve
+    from crocoddyl_tpu_torch.apps.gaits import QuadrupedGaitFactory
+    from crocoddyl_tpu_torch.dynamics import robots
+    with open(os.path.join(HERE, "tests", "golden.json")) as f:
+        golden = json.load(f)
+    f64 = torch.float64
+
+    def build(m, height, step_knots):
+        q0 = robots.quadruped_standing_q(m, height=height)
+        x0 = torch.cat([q0, torch.zeros(m.nv, dtype=f64)])
+        prob = QuadrupedGaitFactory(m, FEET, default_q=q0).walking_problem(
+            x0, 0.25, 0.15, 1e-2, step_knots=step_knots, support_knots=1)
+        xs0 = x0[None].expand(prob.T + 1, -1).clone()
+        return to_dev(torch, prob, dev, f64), xs0, prob.quasi_static(xs0)
+
+    # tests/golden_configs.py:191-210 and
+    # examples/quadrupedal_walk_ubound.py:22-37 at step_knots=6
+    walk = build(robots.anymal(), 0.48, 3)
+    quad = robots.quadruped()
+    lim = quad.effort_limit[6:]
+    ubound = build(quad, 0.5, 6)
+    cases = {
+        "quadrupedal_walking_fast": (walk, SolverSettings(
+            maxiter=40, fused_scans=True), {}),
+        "quadrupedal_walk_ubound_fast": (ubound, box_fddp_settings(
+            maxiter=40), dict(u_lb=-lim, u_ub=lim))}
+    for name, ((p, xs0, us0), st, kw) in cases.items():
+        t0 = time.perf_counter()
+        sol = solve(p, xs0.to(dev), us0.to(dev), st, device=dev, **kw)
+        secs = time.perf_counter() - t0
+        g = golden[name]
+        rc = abs(float(sol.cost) - g["cost"]) / abs(g["cost"])
+        log(f"[golden] f64 {name} T={p.T} on the card: converged "
+            f"{bool(sol.converged)} in {int(sol.iter)} iterations, cost "
+            f"{float(sol.cost)!r}; golden {g['converged']}, {g['iters']}, "
+            f"{g['cost']!r}: cost rtol {rc:.3e} (tol 1e-5); {secs:.1f} s")
+        need(bool(sol.converged) == g["converged"]
+             and abs(int(sol.iter) - g["iters"]) <= 1 and rc <= 1e-5,
+             f"golden {name}")
+
+
+def mpc_loop(torch, ck, dev, card, prob, xs0, us0, p64, xs_conv, us_conv):
+    """Phase 9c, examples/mpc_receding_horizon.py:40-94 --quadruped on the
+    T=108 walk: a float32 plan (maxiter=60, sequential line search), one
+    warm-up tick and MPC_TICKS ticks, each the horizon rotation, the
+    shifted warm start and a maxiter=1 replan through kernels 1, 4 and 5,
+    with the plant step ``node0.calc(x0, us[0])`` timed on its own outside
+    the tick; the descriptors' share of the tick; then MPC_F64_TICKS
+    float64 ticks from the converged float64 plan, kernel path against
+    plain path.  Returns {wrapper name: launches per tick}."""
+    from crocoddyl_tpu_torch import (SolverSettings, circular_append,
+                                     shift_warm_start, solve)
+    from crocoddyl_tpu_torch.utils.struct import tree_map
+    f32 = torch.float32
+    seq = dict(parallel_linesearch=False, record_trace=False,
+               fused_scans=True)
+    tick_st = SolverSettings(maxiter=1, **seq)
+
+    def plant(p, us):
+        return tree_map(lambda l: l[0], p.running).calc(p.x0, us[0])[0]
+
+    def tick(p, xs, us, x_next):
+        p = circular_append(p, new_x0=x_next)
+        xs, us = shift_warm_start(xs, us, x_next)
+        return p, solve(p, xs, us, tick_st, device=dev)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    p = to_dev(torch, prob, dev, f32)
+    plan = solve(p, xs0.to(dev, f32), us0.to(dev, f32),
+                 SolverSettings(maxiter=60, **seq), device=dev)
+    log(f"[mpc] f32 T={p.T} plan: converged {bool(plan.converged)}, "
+        f"diverged {bool(plan.diverged)} in {int(plan.iter)} iterations, "
+        f"cost {float(plan.cost):.6e}")
+    xs, us = plan.xs, plan.us
+    x_next = plant(p, us)
+    p, s = tick(p, xs, us, x_next)          # warm-up tick
+    xs, us = s.xs, s.us
+    reset_counts()
+    lat, plant_ms, costs = [], [], []
+    for _ in range(MPC_TICKS):
+        x_next, ms = synced(lambda: plant(p, us))
+        plant_ms.append(ms)
+        (p, s), ms = synced(lambda: tick(p, xs, us, x_next))
+        lat.append(ms)
+        need(not bool(s.diverged) and bool(torch.isfinite(s.cost)),
+             f"MPC tick {len(lat)} diverged")
+        xs, us = s.xs, s.us
+        costs.append(float(s.cost))
+    per_tick = {w.__name__: w.launches / MPC_TICKS for w in ck.WRAPPERS}
+    need(not any(plain_calls()), "MPC: plain versions ran")
+    need(all(per_tick[n] > 0 for n in ("node_calc_both",
+                                       "riccati_backward_b1",
+                                       "trial_rollout_b1")),
+         f"MPC: launches {per_tick}")
+    # the two descriptors a tick builds, on a fresh rotated problem: the
+    # T+1 knots (kernel 1) and the T running knots (kernel 5)
+    rot = circular_append(p, new_x0=x_next)
+    knots, knots_ms = synced(lambda: rot.knots)
+    _, desc_ms = synced(lambda: (ck.descriptor(knots, dev, f32),
+                                 ck.descriptor(rot.running, dev, f32)))
+    p50, p90 = np.percentile(lat, 50), np.percentile(lat, 90)
+    log(f"[mpc] f32 T={p.T}, {MPC_TICKS} ticks: tick p50 {p50:.2f} ms, p90 "
+        f"{p90:.2f} ms; plant step p50 {np.median(plant_ms):.2f} ms (outside "
+        f"the tick); descriptors of a rotated problem {desc_ms:.2f} ms "
+        f"({100 * desc_ms / p50:.1f} % of p50), its knots {knots_ms:.2f} ms; "
+        f"launches per tick {per_tick}; cost {costs[0]:.4e} -> "
+        f"{costs[-1]:.4e}, no tick diverged  ({card})")
+
+    def ticks():
+        p, xs, us, rows = p64, xs_conv.to(dev), us_conv.to(dev), []
+        for _ in range(MPC_F64_TICKS):
+            p, s = tick(p, xs, us, plant(p, us))
+            rows.append((s, p.x0))
+            xs, us = s.xs, s.us
+        return rows
+    k_rows = ticks()
+    with plain_path():
+        p_rows = ticks()
+    for i, ((k, kx), (r, rx)) in enumerate(zip(k_rows, p_rows)):
+        same(f"MPC f64 tick {i}", k, r, ("iter", "steplength", "is_feasible",
+                                         "diverged"))
+        rc = float((k.cost - r.cost).abs() / r.cost.abs())
+        rx0 = rel_err(rx, kx)
+        log(f"[mpc] f64 tick {i} kernel vs plain: steplength "
+            f"{float(k.steplength)}, feasible {bool(k.is_feasible)} in both, "
+            f"cost rtol {rc:.3e}, x0 rel {rx0:.3e}")
+        need(rc <= 1e-8 and rx0 <= 1e-8, f"MPC f64 tick {i}")
+    return per_tick
+
+
 def main():
     try:
         import torch
@@ -845,14 +1131,13 @@ def main():
     def replan(p, dt, xs_w=xs0, us_w=us0, maxiter=1):
         return solve(p, xs_w.to(dev, dt), us_w.to(dev, dt),
                      SolverSettings(maxiter=maxiter, record_trace=False,
-                                    parallel_linesearch=False), device=dev)
+                                    parallel_linesearch=False,
+                                    fused_scans=True), device=dev)
 
     reset_counts()
     sol1 = replan(p32, f32)
     torch.cuda.synchronize()
-    launches_b1 = {"node": ck.node_calc_both.launches,
-                   "riccati_b1": ck.riccati_backward_b1.launches,
-                   "rollout_b1": ck.trial_rollout_b1.launches}
+    launches_b1 = b1_launches(ck)
     log(f"[b=1] f32 T={T} cold replan: launches {launches_b1}, plain calls "
         f"{plain_calls()}")
     need(all(v > 0 for v in launches_b1.values()),
@@ -863,12 +1148,6 @@ def main():
     need(bool(torch.isfinite(sol1.cost)), "non-finite b=1 cost")
     log(f"[b=1] f32 cold replan: cost {float(sol1.cost):.6e}, steplength "
         f"{float(sol1.steplength)}, xreg {float(sol1.xreg):.1e}")
-
-    def same(tag, a, b, fields):
-        for fld in fields:
-            need(torch.equal(getattr(a, fld).cpu(), getattr(b, fld).cpu()),
-                 f"{tag}: {fld} differs: {getattr(a, fld).tolist()} vs "
-                 f"{getattr(b, fld).tolist()}")
 
     k64 = replan(p64, f64)
     with plain_path():
@@ -909,8 +1188,8 @@ def main():
     # ---- 6. solver surface ----------------------------------------------
     # Box-FDDP with the URDF's effort limits from the rollout of the
     # quasi-static controls (feasible: the box gains apply once the
-    # candidate is), DDP and the default settings from the quasi-static
-    # warm start
+    # candidate is), the default settings (the generic passes, as in JAX),
+    # DDP and the fused-scans settings from the quasi-static warm start
     from crocoddyl_tpu_torch import (box_fddp_settings, ddp_settings,
                                      replicate_model)
     from crocoddyl_tpu_torch.core.problem import ShootingProblem
@@ -920,9 +1199,12 @@ def main():
     surface = {
         "box": (box_fddp_settings(maxiter=1), xs_feas, us0,
                 dict(is_feasible=True, u_lb=-lim, u_ub=lim)),
+        "default": (SolverSettings(maxiter=1), xs0, us0, {}),
         "ddp": (ddp_settings(maxiter=1, parallel_linesearch=False,
-                             record_trace=False), xs0, us0, {}),
-        "default": (SolverSettings(maxiter=1), xs0, us0, {})}
+                             record_trace=False, fused_scans=True), xs0,
+                us0, {}),
+        "fused_scans": (SolverSettings(maxiter=1, fused_scans=True), xs0,
+                        us0, {})}
 
     def run_surface(name, p, dt, table=surface):
         st, xs_s, us_s, kw = table[name]
@@ -935,9 +1217,7 @@ def main():
         with record_qp() as qp:
             sol_s = run_surface(name, p32, f32)
             torch.cuda.synchronize()
-        got = {"node": ck.node_calc_both.launches,
-               "riccati_b1": ck.riccati_backward_b1.launches,
-               "rollout_b1": ck.trial_rollout_b1.launches}
+        got = b1_launches(ck)
         launches_surface[name] = {w.__name__: w.launches
                                   for w in ck.WRAPPERS}
         log(f"[surface] f32 T={T} {name} replan: launches {got}, plain "
@@ -945,9 +1225,9 @@ def main():
             f"steplength {float(sol_s.steplength)}, xreg "
             f"{float(sol_s.xreg):.1e}, feasible {bool(sol_s.is_feasible)}")
         need(got["node"] > 0, f"{name}: node kernel not launched")
-        if name == "box":
+        if name in ("box", "default"):
             need(got["riccati_b1"] == 0 and got["rollout_b1"] == 0,
-                 f"box: kernels 4/5 launched {got}")
+                 f"{name}: kernels 4/5 launched {got}")
         else:
             need(got["riccati_b1"] > 0 and got["rollout_b1"] > 0,
                  f"{name}: kernels 4/5 not launched {got}")
@@ -1130,10 +1410,7 @@ def main():
             f"{b_ms:.6f} ms by {b_by} ({n_bytes} B, {n_ops} operations; "
             f"{100 * b_ms / ms:.3f} % of bound) (f32, main-path shapes)  "
             f"({card})")
-        fname = {"node": "node_calc_both", "riccati": "riccati_backward",
-                 "rollout": "trial_rollout",
-                 "riccati_b1": "riccati_backward_b1",
-                 "rollout_b1": "trial_rollout_b1"}[name]
+        fname = WRAPPER[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n_launch,
                         "launches_surface": {
@@ -1203,6 +1480,17 @@ def main():
         f"{split['_backward_pass']:.1f} ms, trial rollouts "
         f"{split['_forward_pass']:.1f} ms, rest {rest:.1f} ms  ({card})")
     phase_done("profile")
+
+    # ---- 9. gaits and MPC -----------------------------------------------
+    run_gaits(torch, ck, dev, card)
+    phase_done("gaits")
+    run_goldens(torch, dev)
+    phase_done("goldens")
+    per_tick = mpc_loop(torch, ck, dev, card, prob, xs0, us0, p64, xs_w,
+                        us_w)
+    phase_done("mpc")
+    for k in kernels:
+        k["launches_mpc"] = per_tick[WRAPPER[k["name"]]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,24 @@
 """crocoddyl_tpu_torch — the PyTorch/CUDA port of crocoddyl_tpu.
 
-It carries the ANYmal walk (robot model and state manifold, the
-walking-problem factory), the unicycle and LQR models, the batch-native
+It carries the quadruped gaits (the ANYmal B and programmatic quadruped
+robot models, the state manifold, the walking, trotting, pacing,
+bounding, jumping and CoM problem factory), the MPC horizon rotation and
+warm-start shift, the unicycle and LQR models, the batch-native
 ``solve_batch`` over three hand-written CUDA kernels (node linearization,
 Riccati backward pass, trial rollout) and the single-problem ``solve``:
 FDDP, DDP and their box-constrained variants, the parallel and the
-sequential line search, the trace, over the node kernel and two more (the
-single-problem Riccati pass and trial rollout) where the problem's
-structure admits them and over the generic passes otherwise, with a plain
-PyTorch version of each kernel for CPU tensors.  Both entry points run on
-the CUDA device unless the caller passes ``device="cpu"``.  The package
-imports no JAX.
+sequential line search, the trace, over the node kernel and, where the
+problem's structure admits them and ``fused_scans=True`` asks for them,
+two more (the single-problem Riccati pass and trial rollout), and over
+the generic passes otherwise, with a plain PyTorch version of each kernel
+for CPU tensors.  Both entry points run on the CUDA device unless the
+caller passes ``device="cpu"``.  The package imports no JAX.
 """
 
 from .core.action import (ActionModel, NodeDerivs, replicate_model,
                           stack_models)
 from .core.manifolds import StateVector
+from .core.mpc import circular_append, shift_warm_start
 from .core.problem import ShootingProblem
 from .core.solvers.fddp import (Solution, SolverSettings, Trace,
                                 box_ddp_settings, box_fddp_settings,
@@ -24,5 +27,6 @@ from .core.solvers.fddp_batch import solve_batch
 
 __all__ = ["ActionModel", "NodeDerivs", "ShootingProblem", "Solution",
            "SolverSettings", "StateVector", "Trace", "box_ddp_settings",
-           "box_fddp_settings", "ddp_settings", "fddp_settings", "polish",
-           "replicate_model", "solve", "solve_batch", "stack_models"]
+           "box_fddp_settings", "circular_append", "ddp_settings",
+           "fddp_settings", "polish", "replicate_model", "shift_warm_start",
+           "solve", "solve_batch", "stack_models"]

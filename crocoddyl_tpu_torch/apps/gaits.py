@@ -1,6 +1,6 @@
-"""Quadruped walking problem factory (port of
-``QuadrupedGaitFactory.walking_problem`` and the ``_LocomotionFactory``
-helpers it calls, crocoddyl_tpu/apps/gaits.py).
+"""Quadruped gait factory (port of ``QuadrupedGaitFactory`` and
+``_LocomotionFactory`` of crocoddyl_tpu/apps/gaits.py): the CoM shift, the
+jump, and the walking, trotting, pacing and bounding gaits.
 
 Every knot shares ONE structure — a RigidBodyNode with the full maximal
 contact set and cost stack — and per-knot differences (contact activity,
@@ -194,6 +194,49 @@ class _LocomotionFactory:
                                                torch.as_tensor(q0))[2])
         return com_ref, pos
 
+    def com_problem(self, x0, com_go_to: float, dt: float, num_knots: int,
+                    forward_back: bool = True) -> ShootingProblem:
+        """CoM shift task on all feet (gaits.py:322-337)."""
+        x0 = np.asarray(x0)
+        com0 = algo.center_of_mass(
+            self.model, torch.as_tensor(x0[:self.model.nq])).numpy()
+        allfeet = range(self.nfeet)
+        models = [self._make_node(dt, allfeet) for _ in range(num_knots)]
+        models.append(self._make_node(
+            dt, allfeet, com_task=com0 + np.array([com_go_to, 0., 0.])))
+        if forward_back:
+            models += [self._make_node(dt, allfeet) for _ in range(num_knots)]
+            models.append(self._make_node(
+                dt, allfeet, com_task=com0 + np.array([-com_go_to, 0., 0.])))
+        return self._problem(x0, models)
+
+    def jumping_problem(self, x0, jump_height: float, jump_length,
+                        dt: float, ground_knots: int,
+                        flying_knots: int) -> ShootingProblem:
+        """Takeoff, flight with every contact inactive, a pseudo-impulse
+        landing and the landed phase (gaits.py:339-366)."""
+        x0 = np.asarray(x0)
+        com_ref, pos = self._com_ref(x0[:self.model.nq])
+        jump_length = np.asarray(jump_length, float)
+        df = jump_length[2] - pos[0][2]
+        pos = [np.array([p[0], p[1], 0.0]) for p in pos]
+        allfeet = list(range(self.nfeet))
+        models = [self._make_node(dt, allfeet) for _ in range(ground_knots)]
+        for k in range(flying_knots):
+            ct = (np.array([jump_length[0], jump_length[1],
+                            jump_length[2] + jump_height])
+                  * (k + 1) / flying_knots + com_ref)
+            models.append(self._make_node(dt, [], com_task=ct))
+        models += [self._make_node(dt, []) for _ in range(flying_knots)]
+        foot_tasks = {i: pos[i] + jump_length for i in allfeet}
+        models.append(self._make_node(0.0, allfeet, foot_tasks=foot_tasks,
+                                      switch=True))
+        f0 = jump_length.copy()
+        f0[2] = df
+        models += [self._make_node(dt, allfeet, com_task=com_ref + f0)
+                   for _ in range(ground_knots)]
+        return self._problem(x0, models)
+
 
 class QuadrupedGaitFactory(_LocomotionFactory):
     """Feet order must be (LF, RF, LH, RH)."""
@@ -226,3 +269,48 @@ class QuadrupedGaitFactory(_LocomotionFactory):
                                         step_height, dt, step_knots,
                                         [RF, LH, RH], [LF])
         return self._problem(x0, models)
+
+    def _pairs_problem(self, x0, step_length, step_height, dt, step_knots,
+                       support_knots, first_pair, second_pair, half_first):
+        """Two phases, each a double support and one step of a pair of
+        feet (the other pair in support), the first pair's step halved on
+        a factory's first gait when ``half_first``."""
+        x0 = np.asarray(x0)
+        com_ref, feet = self._com_ref(x0[:self.model.nq])
+        first = 1.0
+        if half_first:
+            first = 0.5 if self.first_step else 1.0
+            self.first_step = False
+        allfeet = range(self.nfeet)
+        models = []
+        for pair, length in ((first_pair, first * step_length),
+                             (second_pair, step_length)):
+            support = [i for i in allfeet if i not in pair]
+            models += [self._make_node(dt, allfeet)
+                       for _ in range(support_knots)]
+            models += self._footstep_models(
+                com_ref, [feet[i] for i in pair], length, step_height, dt,
+                step_knots, support, list(pair))
+        return self._problem(x0, models)
+
+    def trotting_problem(self, x0, step_length, step_height, dt,
+                         step_knots, support_knots) -> ShootingProblem:
+        """Diagonal pairs RF+LH, then LF+RH (gaits.py:404-421)."""
+        return self._pairs_problem(x0, step_length, step_height, dt,
+                                   step_knots, support_knots, (1, 2), (0, 3),
+                                   half_first=True)
+
+    def pacing_problem(self, x0, step_length, step_height, dt,
+                       step_knots, support_knots) -> ShootingProblem:
+        """Lateral pairs RF+RH, then LF+LH (gaits.py:423-440)."""
+        return self._pairs_problem(x0, step_length, step_height, dt,
+                                   step_knots, support_knots, (1, 3), (0, 2),
+                                   half_first=True)
+
+    def bounding_problem(self, x0, step_length, step_height, dt,
+                         step_knots, support_knots) -> ShootingProblem:
+        """Front pair LF+RF, then hind pair LH+RH, full steps
+        (gaits.py:442-457)."""
+        return self._pairs_problem(x0, step_length, step_height, dt,
+                                   step_knots, support_knots, (0, 1), (2, 3),
+                                   half_first=False)

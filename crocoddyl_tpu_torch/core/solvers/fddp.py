@@ -8,18 +8,21 @@ line search, with or without the trace and an ``iter_callback``, on one
 segment.  Which passes run follows the problem's structure and the
 settings, as the JAX ``use_fscan`` does (fddp.py:557-561), never the device:
 
-- a problem whose nodes the node kernel admits, without box: every
-  linearization is one node-kernel launch over the T+1 nodes (kernel 1,
-  ``ShootingProblem.calc_diff_full``), every backward pass and ladder probe
-  the single-problem Riccati pass (kernel 4,
+- every linearization of a problem whose nodes the node kernel admits is
+  one node-kernel launch over the T+1 nodes (kernel 1,
+  ``ShootingProblem.calc_diff_full``); ``ActionModel`` nodes give their own
+  derivatives;
+- with ``fused_scans=True``, for a problem whose nodes the node kernel
+  admits, without box: every backward pass and ladder probe is the
+  single-problem Riccati pass (kernel 4,
   ``ops/fused_scans.riccati_backward_fused``) and every line-search trial
   one single-problem rollout (kernel 5,
   ``ops/fused_scans.trial_rollout_fused``);
-- with box, or for ``ActionModel`` nodes: the linearization as above
-  (kernel 1 for admitted nodes, the models' own derivatives otherwise), the
-  generic backward pass ``_backward_pass`` (with a BoxQP per node under
-  box) and the generic trial rollout ``_forward_pass`` (controls clamped
-  under box; the parallel line search's trials as lanes of one pass).
+- otherwise (the default ``fused_scans=False``, box, or ``ActionModel``
+  nodes): the generic backward pass ``_backward_pass`` (with a BoxQP per
+  node under box) and the generic trial rollout ``_forward_pass``
+  (controls clamped under box; the parallel line search's trials as lanes
+  of one pass).
 
 On CUDA tensors the kernels run on the card; the generic passes are plain
 PyTorch on whatever device the problem is on.  The JAX version is one
@@ -50,11 +53,11 @@ from . import boxqp
 @dataclasses.dataclass(frozen=True)
 class SolverSettings:
     """Static solver configuration; defaults mirror the JAX package
-    (fddp.py:51-134).  The JAX fields that select paths the port does not
-    have (``parallel_riccati``, ``fused_scans``, ``scan_unroll``,
-    ``th_gaptol``) are left out: the port takes the single-problem kernels
-    wherever the JAX ``fused_scans=True`` would.  ``ms_chunk`` stays so
-    that the solvers can refuse it."""
+    (fddp.py:51-134).  ``fused_scans=True`` takes the single-problem
+    kernels 4 and 5 where the problem admits them, as the JAX ``use_fscan``
+    does; ``parallel_riccati`` and ``ms_chunk`` (with its ``th_gaptol``)
+    select paths the port does not have yet and are refused by the solvers
+    when set.  ``scan_unroll`` is left out: it tunes XLA loops only."""
 
     maxiter: int = 100
     feasibility_driven: bool = True
@@ -70,7 +73,10 @@ class SolverSettings:
     regmax: float = 1e9
     n_alphas: int = 10
     parallel_linesearch: bool = True
+    parallel_riccati: bool = False
     ms_chunk: int = 0
+    th_gaptol: float = 1e-7
+    fused_scans: bool = False
     # ``iter_callback(iter, cost, xs)`` after every iteration (fddp.py:805)
     iter_callback: Optional[object] = None
     record_trace: bool = True
@@ -174,6 +180,8 @@ def _refusal(problem, settings: SolverSettings) -> Optional[str]:
     None."""
     if settings.ms_chunk:
         return "ms_chunk > 0 (the multiple-shooting forward pass)"
+    if settings.parallel_riccati:
+        return "parallel_riccati=True (the associative-scan Riccati pass)"
     if len(problem.segments) != 1:
         return f"{len(problem.segments)} segments (one is supported)"
     if problem.on_lanes or (isinstance(problem.running, ActionModel)
@@ -185,8 +193,9 @@ def _refusal(problem, settings: SolverSettings) -> Optional[str]:
 
 def supports(problem, settings: SolverSettings) -> bool:
     """True iff ``solve`` covers this problem and configuration: no
-    multiple shooting, one segment whose nodes (and the terminal node) the
-    node kernel admits or are ``ActionModel``s."""
+    multiple shooting, no parallel Riccati pass, one segment whose nodes
+    (and the terminal node) the node kernel admits or are
+    ``ActionModel``s."""
     return _refusal(problem, settings) is None
 
 
@@ -340,9 +349,10 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
     x0 = problem.x0
     fd = s.feasibility_driven
     diff, integrate = _state_ops(problem)
-    # the single-problem kernels where the structure admits them and there
-    # are no bounds (fddp.py:557-561, fused_scans.py:334-340)
-    use_fscan = _fsc.supports_problem(problem, s) and problem.on_lanes
+    # the single-problem kernels when asked for, where the structure admits
+    # them and there are no bounds (fddp.py:557-561, fused_scans.py:334-340)
+    use_fscan = (s.fused_scans and _fsc.supports_problem(problem, s)
+                 and problem.on_lanes)
 
     if s.box:
         if u_lb is None:

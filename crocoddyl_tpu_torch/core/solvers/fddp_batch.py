@@ -30,9 +30,14 @@ from .fddp import Solution, SolverSettings, cast, resolve_device
 
 
 def supports(problem, settings: SolverSettings) -> bool:
+    """Gate of ``solve_batch`` (fddp_batch.py:42-50): feasibility-driven,
+    no box, sequential line search, no parallel Riccati pass, no multiple
+    shooting, no trace and no iteration callback, one segment whose
+    structure the node kernel admits."""
     s = settings
     if (s.box or not s.feasibility_driven or s.parallel_linesearch
-            or s.record_trace or s.ms_chunk):
+            or s.parallel_riccati or s.record_trace or s.ms_chunk
+            or s.iter_callback is not None):
         return False
     return (len(problem.segments) == 1 and _fn.supports(problem.segments[0])
             and _fn.supports(problem.terminal))

@@ -1,5 +1,6 @@
-"""Robot models of the main path (port of part of
-crocoddyl_tpu/dynamics/robots.py)."""
+"""Robot models of the quadruped gaits (port of part of
+crocoddyl_tpu/dynamics/robots.py): ANYmal B from its URDF and the
+programmatic ANYmal-style quadruped."""
 
 from __future__ import annotations
 
@@ -8,7 +9,55 @@ import os
 import numpy as np
 import torch
 
-from .model import RobotModel
+from .model import JointType, ModelBuilder, RobotModel
+
+
+def quadruped(dtype=torch.float64) -> RobotModel:
+    """ANYmal-style quadruped: free-flyer base + 4 legs × (HAA, HFE, KFE),
+    nq = 19, nv = 18 (robots.py:71-104)."""
+    b = ModelBuilder(dtype=dtype)
+    base = b.add_joint(JointType.FREE_FLYER, -1, "root", mass=16.0,
+                       com=(0.0, 0.0, 0.0),
+                       inertia=np.diag([0.25, 0.65, 0.65]))
+    x, y = 0.36, 0.20
+    hip_len, thigh_len, shank_len = 0.08, 0.285, 0.33
+    legs = {"LF": (x, y), "RF": (x, -y), "LH": (-x, y), "RH": (-x, -y)}
+    for name, (px, py) in legs.items():
+        haa = b.add_joint(JointType.REVOLUTE, base, f"{name}_HAA",
+                          axis=(1, 0, 0), placement_p=np.array([px, py, 0.0]),
+                          mass=1.5, com=(0.0, np.sign(py) * 0.04, 0.0),
+                          inertia=np.diag([0.005, 0.005, 0.005]),
+                          q_lim=(-0.7, 0.7), v_lim=10.0, effort_lim=40.0)
+        hfe = b.add_joint(JointType.REVOLUTE, haa, f"{name}_HFE",
+                          axis=(0, 1, 0),
+                          placement_p=np.array([0.0, np.sign(py) * hip_len,
+                                                0.0]),
+                          mass=1.1, com=(0.0, 0.0, -thigh_len / 2),
+                          inertia=np.diag([0.01, 0.01, 0.002]),
+                          q_lim=(-2.0, 2.0), v_lim=10.0, effort_lim=40.0)
+        kfe = b.add_joint(JointType.REVOLUTE, hfe, f"{name}_KFE",
+                          axis=(0, 1, 0),
+                          placement_p=np.array([0.0, 0.0, -thigh_len]),
+                          mass=0.4, com=(0.0, 0.0, -shank_len / 2),
+                          inertia=np.diag([0.004, 0.004, 0.0005]),
+                          q_lim=(-2.5, 2.5), v_lim=10.0, effort_lim=40.0)
+        b.add_frame(f"{name}_FOOT", kfe,
+                    placement_p=np.array([0.0, 0.0, -shank_len]))
+    return b.build()
+
+
+def quadruped_standing_q(model: RobotModel, height=0.5,
+                         dtype=torch.float64) -> torch.Tensor:
+    """A nominal standing configuration, legs bent with the feet under the
+    hips (robots.py:140-151)."""
+    q = np.zeros(model.nq)
+    q[2] = height
+    q[6] = 1.0
+    for leg in range(4):
+        hind = leg >= 2
+        q[8 + 3 * leg] = -0.7 if hind else 0.7       # HFE
+        q[9 + 3 * leg] = 1.2 if hind else -1.2       # KFE
+    return torch.tensor(q, dtype=dtype)
 
 
 def anymal(dtype=torch.float64) -> RobotModel:

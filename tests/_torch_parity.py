@@ -105,12 +105,13 @@ def _no_persistent_cache():
 
 _SOLVE_CHILD = """
 import ctypes, dataclasses, os, signal, sys
-# end with the test process that started it (PR_SET_PDEATHSIG), and yield
-# the CPU to the test workers
+# end with the test process that started it (PR_SET_PDEATHSIG), and, when
+# it runs ahead of the tests that need it, yield the CPU to the workers
 ctypes.CDLL(None).prctl(1, int(signal.SIGKILL))
-if os.getppid() != int(sys.argv[4]):
+if os.getppid() != int(sys.argv[3]):
     sys.exit(1)
-os.nice(10)
+if sys.argv[4] == "nice":
+    os.nice(10)
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
@@ -118,33 +119,39 @@ jax.config.update("jax_enable_x64", True)
 import crocoddyl_tpu as ct
 import crocoddyl_tpu_torch as ctt
 from crocoddyl_tpu.core.solvers import fddp_batch
-from tests._torch_parity import jax_walk, np_, t64, to_port
-entry, maxiter, path = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+from tests._torch_parity import SOLVE_JOBS, jax_walk, np_, t64, to_port
+entry, path = sys.argv[1], sys.argv[2]
 prob, xs0, us0, x0s = jax_walk()
-kw = dict(maxiter=maxiter, record_trace=False, parallel_linesearch=False)
 port = to_port(prob)
-if entry == "solve":
-    ref = ct.solve(prob, xs_init=xs0, us_init=us0,
-                   settings=ct.SolverSettings(**kw))
-    out = ctt.solve(port, t64(xs0), t64(us0), ctt.SolverSettings(**kw),
-                    device="cpu")
-else:
-    ref = fddp_batch.solve_batch(prob, x0s, xs_init=xs0, us_init=us0,
-                                 settings=ct.SolverSettings(**kw))
-    out = ctt.solve_batch(port, t64(x0s), xs_init=t64(xs0),
-                          us_init=t64(us0), settings=ctt.SolverSettings(**kw),
-                          device="cpu")
 leaves = {}
-for tag, sol in (("ref", ref), ("out", out)):
-    for f in dataclasses.fields(sol):
-        if getattr(sol, f.name) is not None:
-            leaves[tag + "." + f.name] = np_(getattr(sol, f.name))
+for maxiter in SOLVE_JOBS[entry]:
+    kw = dict(maxiter=maxiter, record_trace=False, parallel_linesearch=False)
+    if entry == "solve":
+        # the reference's generic scans against the plain versions of the
+        # port's kernels 4 and 5
+        ref = ct.solve(prob, xs_init=xs0, us_init=us0,
+                       settings=ct.SolverSettings(**kw))
+        out = ctt.solve(port, t64(xs0), t64(us0),
+                        ctt.SolverSettings(fused_scans=True, **kw),
+                        device="cpu")
+    else:
+        ref = fddp_batch.solve_batch(prob, x0s, xs_init=xs0, us_init=us0,
+                                     settings=ct.SolverSettings(**kw))
+        out = ctt.solve_batch(port, t64(x0s), xs_init=t64(xs0),
+                              us_init=t64(us0),
+                              settings=ctt.SolverSettings(**kw),
+                              device="cpu")
+    for tag, sol in (("ref", ref), ("out", out)):
+        for f in dataclasses.fields(sol):
+            if getattr(sol, f.name) is not None:
+                leaves[f"{tag}{maxiter}.{f.name}"] = np_(getattr(sol, f.name))
 np.savez(path, **leaves)
 """
 
 
-# Every (entry, maxiter) that the port's tests hand to ``solve_pair``
-SOLVE_PAIRS = (("solve_batch", 1), ("solve", 1), ("solve", 20))
+# The maxiter values that the port's tests hand to ``solve_pair``, by
+# entry point: one child process computes all of an entry's
+SOLVE_JOBS = {"solve_batch": (1,), "solve": (1, 20)}
 
 
 def _shared_dir():
@@ -172,36 +179,48 @@ def solve_cache(tmp_path_factory):
     return str(path)
 
 
-def _compute(entry, maxiter, path):
-    """Run the child of ``solve_pair`` into ``path``; its stderr on
-    failure, else None."""
-    tmp = path + ".part.npz"
+def _compute(entry, path, nice):
+    """Run the child of ``solve_pair`` for ``entry`` into ``path`` (niced
+    with ``nice``); its stderr on failure, else None."""
+    tmp = f"{path}.{os.getpid()}.part.npz"
     env = {k: v for k, v in os.environ.items()
            if k != "PYTEST_XDIST_TESTRUNUID"}  # the child prefetches nothing
     # one XLA:CPU thread: the child runs beside the test workers
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + " --xla_cpu_multi_thread_eigen=false").strip()
     res = subprocess.run(
-        [sys.executable, "-c", _SOLVE_CHILD, entry, str(maxiter), tmp,
-         str(os.getpid())], cwd=REPO, env=env, capture_output=True,
-        text=True, timeout=1200)
+        [sys.executable, "-c", _SOLVE_CHILD, entry, tmp, str(os.getpid()),
+         "nice" if nice else "normal"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=1200)
     if res.returncode != 0:
         return res.stderr[-4000:] or f"exit code {res.returncode}"
     os.replace(tmp, path)
     return None
 
 
+def _replacement_worker():
+    """True in an xdist worker started in place of one that crashed: its ids
+    run on past the initial count (gw6 with ``-n 6``)."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "")
+    count = os.environ.get("PYTEST_XDIST_WORKER_COUNT", "")
+    return (worker.startswith("gw") and count.isdigit()
+            and int(worker[2:]) >= int(count))
+
+
 def _prefetch(cache_dir):
-    """Take the lock of every pair of SOLVE_PAIRS that no worker has taken
-    and compute those pairs one after the other in a thread of this
+    """Take the lock of every entry of SOLVE_JOBS that no worker has taken
+    and compute those pairs one after the other, niced, in a thread of this
     process, releasing each lock as its pair is written: the children run
-    beside the session's other tests from its start, one at a time, and a
-    worker that needs a pair waits only for what is left of it.  A child
-    dies with its worker; a pair left undone is computed by ``solve_pair``
-    in the first worker that asks."""
+    beside the session's other tests from its start.  A child dies with its
+    worker, and a worker started in place of a crashed one prefetches
+    nothing: it runs the crashed worker's queue alone while the others shut
+    down, and a pair left undone is computed by the first worker that asks
+    (``solve_pair``)."""
+    if _replacement_worker():
+        return
     held = []
-    for entry, maxiter in SOLVE_PAIRS:
-        path = os.path.join(cache_dir, f"{entry}_{maxiter}.npz")
+    for entry in SOLVE_JOBS:
+        path = os.path.join(cache_dir, f"{entry}.npz")
         lock = open(path + ".lock", "w")
         try:
             fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
@@ -211,12 +230,12 @@ def _prefetch(cache_dir):
         if os.path.exists(path):
             lock.close()
             continue
-        held.append((entry, maxiter, path, lock))
+        held.append((entry, path, lock))
 
     def run():
-        for entry, maxiter, path, lock in held:
+        for entry, path, lock in held:
             try:
-                _compute(entry, maxiter, path)
+                _compute(entry, path, nice=True)
             finally:
                 lock.close()
     if held:
@@ -231,25 +250,27 @@ def solve_pair(entry, maxiter, cache_dir):
     scope) as namespaces of numpy leaves: ``entry`` "solve" runs
     ``ct.solve`` and the port's ``solve(device="cpu")`` from x0,
     "solve_batch" both ``solve_batch`` from the B=3 x0s.  Both run in a
-    fresh Python process: XLA:CPU has crashed compiling or (de)serializing
-    the multi-MB solver programs late in long test workers
-    (tests/run_suite.sh), and the port's plain CPU solve is the longest
-    torch work of the suite.  The solutions go to ``cache_dir`` (the
-    ``solve_cache`` fixture) under a file lock: under pytest-xdist the
-    pairs were started when this module was first imported
-    (``_prefetch``), so a worker waits at most for the rest of them; a
-    pair that is not there is computed by the first worker that asks."""
-    path = os.path.join(cache_dir, f"{entry}_{maxiter}.npz")
+    fresh Python process, which computes every maxiter of SOLVE_JOBS[entry]:
+    XLA:CPU has crashed compiling or (de)serializing the multi-MB solver
+    programs late in long test workers (tests/run_suite.sh), and the port's
+    plain CPU solve is the longest torch work of the suite.  The solutions
+    go to ``cache_dir`` (the ``solve_cache`` fixture) under a file lock:
+    under pytest-xdist the pairs were started when this module was first
+    imported (``_prefetch``), so a worker waits at most for the rest of
+    them (a lock is released when its holder dies, and its child dies with
+    it); a pair that is not there is computed by the first worker that
+    asks, at normal priority, since a test waits for it."""
+    path = os.path.join(cache_dir, f"{entry}.npz")
     with open(path + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(path):
-            err = _compute(entry, maxiter, path)
+            err = _compute(entry, path, nice=False)
             if err is not None:
                 raise RuntimeError(f"{entry} failed:\n{err}")
     with np.load(path) as z:
         return tuple(types.SimpleNamespace(**{
             k.split(".", 1)[1]: z[k] for k in z.files
-            if k.startswith(tag + ".")}) for tag in ("ref", "out"))
+            if k.startswith(f"{tag}{maxiter}.")}) for tag in ("ref", "out"))
 
 
 if _shared_dir():
@@ -328,8 +349,19 @@ def jax_node_case(B=2):
     per knot at perturbed (x, u), and the JAX lane linearization
     ``calc_both_lanes(..., "jnp")`` of those nodes.
     Returns (knots, xn (K·B, nx), un (K·B, nu), B, (derivs, xnext, cost))."""
+    return node_case(jax_walk()[0], B)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_lanes():
+    """The JAX lane linearization, jitted once: nodes of the same structure
+    and count reuse its executable."""
     from crocoddyl_tpu.ops import fused_node as jfn
-    prob = jax_walk()[0]
+    return jax.jit(lambda s, x, u: jfn.calc_both_lanes(s, x, u, "jnp"))
+
+
+def node_case(prob, B):
+    """``jax_node_case`` for the JAX problem ``prob``."""
     xs, us = perturbed_nodes(prob)
     term = prob.terminal.replace(dt=jnp.zeros_like(prob.terminal.dt))
     knots = jax.tree.map(lambda r, t: jnp.concatenate([r, t[None]]),
@@ -340,6 +372,5 @@ def jax_node_case(B=2):
     xn[:, 3:7] /= np.linalg.norm(xn[:, 3:7], axis=1, keepdims=True)
     seg_l = jax.tree.map(
         lambda l: jnp.repeat(jnp.moveaxis(l, 0, -1), B, axis=-1), knots)
-    lanes = jax.jit(lambda s, x, u: jfn.calc_both_lanes(s, x, u, "jnp"))
-    ref = lanes(seg_l, jnp.asarray(xn.T), jnp.asarray(un.T))
+    ref = _jax_lanes()(seg_l, jnp.asarray(xn.T), jnp.asarray(un.T))
     return knots, xn, un, B, ref

@@ -344,15 +344,21 @@ def test_riccati_kernel_source_matches_jax(riccati_case, riccati_host,
 
 
 @functools.lru_cache(maxsize=None)
-def _rollout_case(alpha):
-    """Rollout inputs (T, ..., B) on the riccati_case gains and the JAX
-    lane rollout ``trial_rollout_lanes(..., interpret=True)`` of them."""
+def _jax_rollout():
+    """The JAX lane rollout ``trial_rollout_lanes(..., interpret=True)``
+    jitted once, the step length an argument: both step lengths of the
+    checks share one executable."""
     from crocoddyl_tpu.ops import fused_scans as jfs
-    (jd, jterm), _, fs, B = _riccati_case()
-    reg = np.full(B, 1e-9)
-    _, _, _, k, K, _, _ = jfs.riccati_backward_lanes(
-        jd, jterm, jnp.asarray(fs), jnp.asarray(reg), jnp.asarray(reg),
-        interpret=True)
+    return jax.jit(lambda seg, *a: jfs.trial_rollout_lanes(
+        seg, *a, interpret=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _rollout_case(alpha):
+    """Rollout inputs (T, ..., B) on the gains of riccati_case at
+    regularization 1e-9 and the JAX lane rollout of them."""
+    _, _, fs, B = _riccati_case()
+    _, _, _, k, K, _, _ = _riccati_ref(False)
     knots, xn, un, _, _ = jax_node_case()
     prob = jax_walk()[0]
     seg = prob.segments[0]
@@ -360,10 +366,9 @@ def _rollout_case(alpha):
     xs = _lanes(xn.T, B)[:T]
     us = _lanes(un.T, B)[:T]
     x0 = xs[0]
-    ref = jfs.trial_rollout_lanes(
-        seg, jnp.asarray(x0), jnp.asarray(xs), jnp.asarray(us), k, K,
-        jnp.asarray(fs[:-1]), jnp.asarray(fs[-1]), alpha, interpret=True)
-    ins = (x0, xs, us, np.asarray(k), np.asarray(K), fs[:-1])
+    ref = _jax_rollout()(seg, *map(jnp.asarray, (
+        x0, xs, us, k, K, fs[:-1], fs[-1], alpha)))
+    ins = (x0, xs, us, k, K, fs[:-1])
     return seg, ins, fs[-1], tuple(np.asarray(a) for a in ref)
 
 

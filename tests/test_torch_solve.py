@@ -8,16 +8,16 @@ package, float64 on CPU, on the reduced ANYmal walk.
   also when a negative ureg forces a failure;
 - kernel 5's plain version plus the terminal node vs ``fddp._forward_pass``
   at α=0.5 (tests/test_fused_scans.py:68-96): relative 1e-9;
-- ``solve(device="cpu")`` vs JAX ``ct.solve`` from the quasi-static warm
-  start, both exits: identical decisions, cost rtol 1e-8, us within 1e-6,
+- ``solve(device="cpu")`` with ``fused_scans=True`` (the plain versions
+  of kernels 4 and 5) vs JAX ``ct.solve`` (its generic scans) from the
+  quasi-static warm start, both exits: identical decisions, cost rtol 1e-8, us within 1e-6,
   the direction fields and xs within 1e-8 of their max-abs (the gaps fs
   within 1e-8 of the states' max-abs, see ``_same_solution``);
 - the gate (what ``solve`` still refuses) and the device rule of the
   entry points.
 
-Each exit's JAX and port solves run once a session, together, in a fresh
-process (``solve_pair``), and each exit is one test, so that one worker
-pays for each.
+Both exits' JAX and port solves run once a session, together, in one
+fresh process (``solve_pair``).
 """
 
 import numpy as np

@@ -17,10 +17,12 @@ float64 on CPU.
 - ``DiffLQRModel`` and the AD default derivatives of ``ActionModel``
   against the JAX derivatives within 1e-10 of each block's max-abs; the
   unicycle solved through the AD derivatives against the oracle;
-- on the reduced walk: which passes run (kernels 4 and 5 through their
-  dispatchers under DDP, the parallel line search and the trace; the
-  generic passes under box), and the default settings' replan against the
-  sequential replan that tests/test_torch_solve.py holds to JAX.
+- on the reduced walk: which passes run under ``fused_scans=True``
+  (kernels 4 and 5 through their dispatchers under DDP, the parallel line
+  search and the trace; the generic passes under box), and the default
+  settings' replan, through the generic passes and under
+  ``fused_scans=True``, against the sequential replan that
+  tests/test_torch_solve.py holds to JAX.
 """
 
 import numpy as np
@@ -243,11 +245,14 @@ def test_iter_callback_trace_and_polish(tmp_path):
     np.testing.assert_allclose(float(pol.cost), float(sol.cost), rtol=1e-9)
 
 
-@pytest.mark.parametrize("case", ["ddp", "parallel", "trace", "box"])
+@pytest.mark.parametrize("case", ["ddp", "parallel", "trace", "box",
+                                  "default"])
 def test_walk_dispatch(case, monkeypatch):
-    """Kernel 1 linearizes the walk on every path; kernels 4 and 5 run
-    (through their dispatchers) unless there are bounds, where the generic
-    passes run instead (fddp.py:557-561)."""
+    """Kernel 1 linearizes the walk on every path; under
+    ``fused_scans=True`` kernels 4 and 5 run (through their dispatchers,
+    which take the plain versions on the CPU) unless there are bounds; the
+    generic passes run under bounds and with the default
+    ``fused_scans=False`` (fddp.py:556-561)."""
     import crocoddyl_tpu_torch as ctt
     from crocoddyl_tpu_torch.core.solvers import fddp
     from crocoddyl_tpu_torch.ops import fused_node as fn
@@ -271,40 +276,53 @@ def test_walk_dispatch(case, monkeypatch):
     us0 = prob.quasi_static(xs0)
     settings = {
         "ddp": ctt.ddp_settings(maxiter=1, parallel_linesearch=False,
-                                record_trace=False),
-        "parallel": ctt.SolverSettings(maxiter=1, record_trace=False),
-        "trace": ctt.SolverSettings(maxiter=1, parallel_linesearch=False),
-        "box": ctt.box_fddp_settings(maxiter=1)}[case]
+                                record_trace=False, fused_scans=True),
+        "parallel": ctt.SolverSettings(maxiter=1, record_trace=False,
+                                       fused_scans=True),
+        "trace": ctt.SolverSettings(maxiter=1, parallel_linesearch=False,
+                                    fused_scans=True),
+        "box": ctt.box_fddp_settings(maxiter=1, fused_scans=True),
+        "default": ctt.SolverSettings(maxiter=1, parallel_linesearch=False,
+                                      record_trace=False)}[case]
     kw = {}
     if case == "box":
         lim = 0.15 * prob.state.model.effort_limit[6:]
         kw = dict(u_lb=-lim, u_ub=lim, is_feasible=True)
         xs0 = prob.rollout(us0)
+    plain = (fsc.riccati_backward_fused_plain, fsc.trial_rollout_fused_plain)
+    before = [f.calls for f in plain]
     sol = ctt.solve(prob, xs0, us0, settings, device="cpu", **kw)
     assert bool(torch.isfinite(sol.cost))
     assert counts["calc_both_lanes"] >= 1
     kernels = [counts.get(n, 0) for n in ("riccati_backward_fused",
                                           "trial_rollout_fused")]
     generic = [counts.get(n, 0) for n in ("_backward_pass", "_forward_pass")]
-    if case == "box":
+    if case in ("box", "default"):
         assert kernels == [0, 0] and min(generic) >= 1, counts
     else:
         assert min(kernels) >= 1 and generic == [0, 0], counts
+        assert [f.calls - b for f, b in zip(plain, before)] == kernels
     assert (sol.trace is None) == (not settings.record_trace)
 
 
-def test_walk_default_settings_replan(solve_cache):  # noqa: F811
+@pytest.mark.parametrize("fused_scans", [False, True],
+                         ids=["default", "fused_scans"])
+def test_walk_default_settings_replan(fused_scans, solve_cache):  # noqa: F811
     """``SolverSettings(maxiter=1)`` (the parallel line search and the
-    trace) on the reduced walk takes the step of the sequential replan that
-    tests/test_torch_solve.py holds to JAX (that one's port solve ran in
-    another process, from a warm start that XLA computed there: the bar of
-    ``_same_solution``), and its trace's first row is the solution's."""
+    trace) on the reduced walk, through the generic passes (the default)
+    and through kernels 4 and 5 (``fused_scans=True``: their plain versions
+    here, the parallel search one kernel-5 trial at a time), takes the step
+    of the sequential replan that tests/test_torch_solve.py holds to JAX
+    (that one's port solve ran in another process, from a warm start that
+    XLA computed there: the bar of ``_same_solution``), and its trace's
+    first row is the solution's."""
     import crocoddyl_tpu_torch as ctt
     from tests.test_torch_solve import _same_solution
     ref = solve_pair("solve", 1, solve_cache)[1]
     prob, xs0, us0, _ = jax_walk()
     sol = ctt.solve(to_port(prob), t64(xs0), t64(us0),
-                    ctt.SolverSettings(maxiter=1), device="cpu")
+                    ctt.SolverSettings(maxiter=1, fused_scans=fused_scans),
+                    device="cpu")
     _same_solution(ref, sol, ("iter", "steplength", "is_feasible", "xreg"))
     tr = sol.trace
     row = [float(getattr(tr, f)[0]) for f in ("cost", "stop", "grad", "xreg",
