@@ -1,18 +1,22 @@
 """crocoddyl_tpu_torch — the PyTorch/CUDA port of crocoddyl_tpu.
 
-It carries the quadruped gaits (the ANYmal B and programmatic quadruped
-robot models, the state manifold, the walking, trotting, pacing,
-bounding, jumping and CoM problem factory), the MPC horizon rotation and
-warm-start shift, the unicycle and LQR models, the batch-native
-``solve_batch`` over three hand-written CUDA kernels (node linearization,
-Riccati backward pass, trial rollout) and the single-problem ``solve``:
-FDDP, DDP and their box-constrained variants, the parallel and the
-sequential line search, the trace, over the node kernel and, where the
-problem's structure admits them and ``fused_scans=True`` asks for them,
-two more (the single-problem Riccati pass and trial rollout), and over
-the generic passes otherwise, with a plain PyTorch version of each kernel
-for CPU tensors.  Both entry points run on the CUDA device unless the
-caller passes ``device="cpu"``.  The package imports no JAX.
+It carries the rigid-body node (``RigidBodyNode``: free or contact
+dynamics, armature, Euler or RK4, with closed-form derivatives for every
+structure), the robot models (ANYmal B, the programmatic quadruped, the
+pendulum, double pendulum, cart-pole and 7-DoF arm), the quadruped gaits
+(the walking, trotting, pacing, bounding, jumping and CoM problem
+factory), the MPC horizon rotation and warm-start shift, the unicycle and
+LQR models, the batch-native ``solve_batch`` over three hand-written CUDA
+kernels (node linearization, Riccati backward pass, trial rollout) and the
+single-problem ``solve``: FDDP, DDP and their box-constrained variants,
+the parallel and the sequential line search, the trace, over the node
+kernel for every stack whose structure it admits (the other stacks give
+their own derivatives) and, where the problem's structure admits them and
+``fused_scans=True`` asks for them, two more (the single-problem Riccati
+pass and trial rollout), and over the generic passes otherwise, with a
+plain PyTorch version of each kernel for CPU tensors.  Both entry points
+run on the CUDA device unless the caller passes ``device="cpu"``.  The
+package imports no JAX.
 """
 
 from .core.action import (ActionModel, NodeDerivs, replicate_model,
@@ -24,9 +28,16 @@ from .core.solvers.fddp import (Solution, SolverSettings, Trace,
                                 box_ddp_settings, box_fddp_settings,
                                 ddp_settings, fddp_settings, polish, solve)
 from .core.solvers.fddp_batch import solve_batch
+from .dynamics import robots
+from .dynamics.robots import arm7, cartpole, double_pendulum, pendulum
+from .models.multibody.costs import CostFramePlacement, CostFrameRotation
+from .models.multibody.nodes import CostStack, RigidBodyNode
 
-__all__ = ["ActionModel", "NodeDerivs", "ShootingProblem", "Solution",
-           "SolverSettings", "StateVector", "Trace", "box_ddp_settings",
-           "box_fddp_settings", "circular_append", "ddp_settings",
-           "fddp_settings", "polish", "replicate_model", "shift_warm_start",
-           "solve", "solve_batch", "stack_models"]
+__all__ = ["ActionModel", "CostFramePlacement", "CostFrameRotation",
+           "CostStack", "NodeDerivs", "RigidBodyNode", "ShootingProblem",
+           "Solution", "SolverSettings", "StateVector", "Trace", "arm7",
+           "box_ddp_settings", "box_fddp_settings", "cartpole",
+           "circular_append", "ddp_settings", "double_pendulum",
+           "fddp_settings", "pendulum", "polish", "replicate_model",
+           "robots", "shift_warm_start", "solve", "solve_batch",
+           "stack_models"]

@@ -8,18 +8,20 @@ line search, with or without the trace and an ``iter_callback``, on one
 segment.  Which passes run follows the problem's structure and the
 settings, as the JAX ``use_fscan`` does (fddp.py:557-561), never the device:
 
-- every linearization of a problem whose nodes the node kernel admits is
-  one node-kernel launch over the T+1 nodes (kernel 1,
-  ``ShootingProblem.calc_diff_full``); ``ActionModel`` nodes give their own
-  derivatives;
+- every linearization goes through ``ShootingProblem.calc_diff_full``,
+  which takes each stack by its structure: a problem whose nodes the node
+  kernel admits is one node-kernel launch over the T+1 nodes (kernel 1); a
+  running stack or terminal the kernel admits keeps kernel 1 when the
+  other one does not; every other stack (a generic ``RigidBodyNode``, an
+  ``ActionModel``) gives its own derivatives;
 - with ``fused_scans=True``, for a problem whose nodes the node kernel
   admits, without box: every backward pass and ladder probe is the
   single-problem Riccati pass (kernel 4,
   ``ops/fused_scans.riccati_backward_fused``) and every line-search trial
   one single-problem rollout (kernel 5,
   ``ops/fused_scans.trial_rollout_fused``);
-- otherwise (the default ``fused_scans=False``, box, or ``ActionModel``
-  nodes): the generic backward pass ``_backward_pass`` (with a BoxQP per
+- otherwise (the default ``fused_scans=False``, box, or a node the kernel
+  does not admit): the generic backward pass ``_backward_pass`` (with a BoxQP per
   node under box) and the generic trial rollout ``_forward_pass``
   (controls clamped under box; the parallel line search's trials as lanes
   of one pass).
@@ -46,7 +48,7 @@ from ...ops import fused_scans as _fsc
 from ...ops.smallchol import cho_solve, chol
 from ...utils.struct import tree_leaves, tree_map
 from ..action import ActionModel
-from ..problem import node_calc, terminal_calc
+from ..problem import terminal_calc
 from . import boxqp
 
 
@@ -184,18 +186,18 @@ def _refusal(problem, settings: SolverSettings) -> Optional[str]:
         return "parallel_riccati=True (the associative-scan Riccati pass)"
     if len(problem.segments) != 1:
         return f"{len(problem.segments)} segments (one is supported)"
-    if problem.on_lanes or (isinstance(problem.running, ActionModel)
-                            and isinstance(problem.terminal, ActionModel)):
+    if (isinstance(problem.running, ActionModel)
+            and isinstance(problem.terminal, ActionModel)):
         return None
-    return ("a node structure that the node kernel does not admit and that "
-            "is not an ActionModel with its own derivatives")
+    return ("a node that is not an ActionModel (a RigidBodyNode, or a model "
+            "with its own calc and derivatives)")
 
 
 def supports(problem, settings: SolverSettings) -> bool:
     """True iff ``solve`` covers this problem and configuration: no
-    multiple shooting, no parallel Riccati pass, one segment whose nodes
-    (and the terminal node) the node kernel admits or are
-    ``ActionModel``s."""
+    multiple shooting, no parallel Riccati pass, one segment of
+    ``ActionModel``s (``RigidBodyNode`` included) and an ``ActionModel``
+    terminal."""
     return _refusal(problem, settings) is None
 
 
@@ -290,13 +292,12 @@ def _backward_pass(derivs, dterm, fs, xreg, ureg, box_args=None,
 def _forward_pass(problem, xs, us, k, K, fs, alphas, u_lb=None, u_ub=None):
     """Trial rollouts at the step lengths ``alphas`` (fddp.py:310-355), the
     trials as rows: each knot's nodes are evaluated for all trials at once
-    (``core.problem.node_calc``: one plain lane primal for a lane node, the
-    model's ``calc`` under vmap otherwise).  ``fs`` must already be zeroed
+    (``ShootingProblem.knot_calc``: one plain lane primal for a lane node,
+    the model's ``calc`` under vmap otherwise).  ``fs`` must already be zeroed
     for DDP; with bounds the controls are clamped (box-ddp.cpp:95-97).
     Returns (xs_try (A, T+1, nx), us_try (A, T, nu), cost (A,), failed
     (A,))."""
     diff, integrate = _state_ops(problem)
-    seg = problem.running
     A = len(alphas)
     al = torch.tensor(alphas, dtype=xs.dtype, device=xs.device)[:, None]
     gap = al - 1.0
@@ -310,8 +311,7 @@ def _forward_pass(problem, xs, us, k, K, fs, alphas, u_lb=None, u_ub=None):
         u_try = us[t] - al * k[t] - dx @ K[t].T
         if u_lb is not None:
             u_try = torch.clamp(u_try, u_lb[t], u_ub[t])
-        xnext, c = node_calc(tree_map(lambda l: l[t:t + 1], seg), x_try,
-                             u_try)
+        xnext, c = problem.knot_calc(t, x_try, u_try)
         cost = cost + c
         # raiseIfNaN (fddp.cpp:172-180) on the running cost and the state
         failed = (failed | ~(cost.abs() < 1e30)
@@ -429,8 +429,9 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
         for alpha in alphas_:
             xs_r, us_r, x_last, cost_r, failed = _fsc.trial_rollout_fused(
                 seg, x0, c["xs"], c["us"], k, K, fs_fwd, alpha)
-            xT = integrate(x_last[None], (alpha - 1.0) * fs_fwd[-1:])[0]
-            cost_try = cost_r + term.calc_terminal(xT)
+            xT = integrate(x_last[None], (alpha - 1.0) * fs_fwd[-1:])
+            cost_try = cost_r + terminal_calc(term, xT)[0]
+            xT = xT[0]
             out.append((torch.cat([xs_r, xT[None]], 0), us_r, cost_try,
                         failed | _bad(cost_try)))
         return out

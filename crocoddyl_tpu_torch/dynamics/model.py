@@ -95,6 +95,23 @@ class RobotModel(PyTreeNode):
                 parts.append(torch.zeros(1, dtype=dtype))
         return torch.cat(parts).to(self.jp_p.device)
 
+    def random_q(self, generator: torch.Generator, dtype=None) -> torch.Tensor:
+        """A random configuration (model.py:110-123) drawn from
+        ``generator`` in place of the JAX key: a free flyer's position
+        uniform in [-1, 1)³ and a normalized Gaussian quaternion, every
+        other joint uniform in [-π, π)."""
+        dtype = dtype or self.jp_p.dtype
+        parts = []
+        for t in self.joint_types:
+            if JointType(t) == JointType.FREE_FLYER:
+                p = 2.0 * torch.rand(3, generator=generator, dtype=dtype) - 1.0
+                quat = torch.randn(4, generator=generator, dtype=dtype)
+                parts += [p, quat / torch.linalg.norm(quat)]
+            else:
+                parts.append((2.0 * torch.rand(1, generator=generator,
+                                               dtype=dtype) - 1.0) * np.pi)
+        return torch.cat(parts).to(self.jp_p.device)
+
 
 class ModelBuilder:
     """Imperative numpy builder that freezes into a RobotModel of CPU

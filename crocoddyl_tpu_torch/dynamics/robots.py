@@ -1,6 +1,6 @@
-"""Robot models of the quadruped gaits (port of part of
-crocoddyl_tpu/dynamics/robots.py): ANYmal B from its URDF and the
-programmatic ANYmal-style quadruped."""
+"""Robot models (port of part of crocoddyl_tpu/dynamics/robots.py): the
+fixed-base pendulum, double pendulum, cart-pole and 7-DoF arm, ANYmal B
+from its URDF and the programmatic ANYmal-style quadruped."""
 
 from __future__ import annotations
 
@@ -10,6 +10,61 @@ import numpy as np
 import torch
 
 from .model import JointType, ModelBuilder, RobotModel
+
+
+def pendulum(dtype=torch.float64) -> RobotModel:
+    b = ModelBuilder(dtype=dtype)
+    j = b.add_joint(JointType.REVOLUTE, -1, "joint1", axis=(0, 1, 0),
+                    mass=1.0, com=(0.0, 0.0, -0.5),
+                    inertia=np.diag([0.01, 0.01, 0.01]), effort_lim=20.0)
+    b.add_frame("tip", j, placement_p=np.array([0.0, 0.0, -1.0]))
+    return b.build()
+
+
+def double_pendulum(dtype=torch.float64) -> RobotModel:
+    """Two-link pendulum (robots.py:26-39)."""
+    b = ModelBuilder(dtype=dtype)
+    j1 = b.add_joint(JointType.REVOLUTE, -1, "joint1", axis=(0, 1, 0),
+                     mass=1.0, com=(0.0, 0.0, -0.25),
+                     inertia=np.diag([0.02, 0.02, 0.002]), effort_lim=20.0)
+    j2 = b.add_joint(JointType.REVOLUTE, j1, "joint2", axis=(0, 1, 0),
+                     placement_p=np.array([0.0, 0.0, -0.5]),
+                     mass=1.0, com=(0.0, 0.0, -0.25),
+                     inertia=np.diag([0.02, 0.02, 0.002]), effort_lim=20.0)
+    b.add_frame("tip", j2, placement_p=np.array([0.0, 0.0, -0.5]))
+    return b.build()
+
+
+def cartpole(dtype=torch.float64) -> RobotModel:
+    b = ModelBuilder(dtype=dtype)
+    cart = b.add_joint(JointType.PRISMATIC, -1, "slider", axis=(1, 0, 0),
+                       mass=1.0, com=(0, 0, 0),
+                       inertia=np.diag([0.1, 0.1, 0.1]))
+    pole = b.add_joint(JointType.REVOLUTE, cart, "pole", axis=(0, 1, 0),
+                       mass=0.1, com=(0.0, 0.0, 0.5),
+                       inertia=np.diag([0.005, 0.005, 0.0005]))
+    b.add_frame("pole_tip", pole, placement_p=np.array([0.0, 0.0, 1.0]))
+    return b.build()
+
+
+def arm7(dtype=torch.float64) -> RobotModel:
+    """7-DoF serial arm with Talos-arm-like alternating axes and scales
+    (robots.py:53-69)."""
+    b = ModelBuilder(dtype=dtype)
+    axes = [(0, 0, 1), (0, 1, 0), (0, 0, 1), (0, 1, 0),
+            (0, 0, 1), (0, 1, 0), (1, 0, 0)]
+    lengths = [0.15, 0.15, 0.25, 0.25, 0.15, 0.1, 0.1]
+    masses = [2.0, 2.0, 1.5, 1.5, 1.0, 0.8, 0.5]
+    parent = -1
+    for i, (ax, L, m) in enumerate(zip(axes, lengths, masses)):
+        parent = b.add_joint(
+            JointType.REVOLUTE, parent, f"joint{i+1}", axis=ax,
+            placement_p=np.array([0.0, 0.0, -L if i else 0.0]),
+            mass=m, com=(0.0, 0.0, -L / 2),
+            inertia=np.diag([m * L * L / 12] * 2 + [m * 0.001]),
+            q_lim=(-2.5, 2.5), v_lim=3.0, effort_lim=60.0)
+    b.add_frame("gripper", parent, placement_p=np.array([0.0, 0.0, -0.12]))
+    return b.build()
 
 
 def quadruped(dtype=torch.float64) -> RobotModel:

@@ -43,8 +43,20 @@ class Transform(NamedTuple):
         Rl, Ra = mv(self.R, lin), mv(self.R, ang)
         return torch.cat([Rl, Ra + cross(self.p, Rl)], dim=-1)
 
+    def act_force_inv(self, f):
+        """Force expressed in A → expressed in B."""
+        lin, ang = f[..., :3], f[..., 3:]
+        return torch.cat([mtv(self.R, lin),
+                          mtv(self.R, ang - cross(self.p, lin))], dim=-1)
+
     def act_point(self, x):
         return self.p + mv(self.R, x)
+
+
+def transform_identity(dtype=torch.float64, batch=(), device=None):
+    R = torch.eye(3, dtype=dtype, device=device).expand(batch + (3, 3))
+    return Transform(R, torch.zeros(batch + (3,), dtype=dtype,
+                                    device=device))
 
 
 def cross_motion(v, m):

@@ -46,10 +46,12 @@ def _classes():
 
 
 def problem_from_numpy(leaves: Mapping[str, np.ndarray], structure,
-                       device=None, dtype=None):
+                       device=None, dtype=None, classes=None):
     """Rebuild a problem (or any node of one) from numpy leaves keyed by
-    pytree path and a structure description (see the module docstring)."""
-    classes = _classes()
+    pytree path and a structure description (see the module docstring).
+    ``classes`` adds port classes by name, such as a user's
+    ``Actuation`` subclass."""
+    classes = {**_classes(), **(classes or {})}
 
     def build(node):
         if node is None:

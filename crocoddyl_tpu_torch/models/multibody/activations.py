@@ -1,6 +1,9 @@
 """Activation models r ↦ (a, Ar, Arr_diag) (port of the four activations of
 crocoddyl_tpu/models/multibody/activations.py that the node kernel
-admits)."""
+admits).  The factor ½ multiplies the residual before the sum: a 0-d
+float32 value times a Python float gets a float64 tangent under
+``torch.func.jvp`` (PyTorch 2.13), and the generic node differentiates
+through these."""
 
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ class ActivationQuad(Activation):
     """a = ½‖r‖²."""
 
     def calc(self, r):
-        return 0.5 * (r * r).sum(-1), r, torch.ones_like(r)
+        return (0.5 * r * r).sum(-1), r, torch.ones_like(r)
 
 
 class ActivationWeightedQuad(Activation):
@@ -29,7 +32,7 @@ class ActivationWeightedQuad(Activation):
 
     def calc(self, r):
         wr = self.weights * r
-        return 0.5 * (r * wr).sum(-1), wr, self.weights.expand_as(r)
+        return (0.5 * r * wr).sum(-1), wr, self.weights.expand_as(r)
 
 
 class ActivationQuadraticBarrier(Activation):
@@ -41,7 +44,7 @@ class ActivationQuadraticBarrier(Activation):
     def calc(self, r):
         rlb = torch.clamp(r - self.lb, max=0.0)
         rub = torch.clamp(r - self.ub, min=0.0)
-        a = 0.5 * (rlb * rlb).sum(-1) + 0.5 * (rub * rub).sum(-1)
+        a = (0.5 * rlb * rlb).sum(-1) + (0.5 * rub * rub).sum(-1)
         active = ((r - self.lb) <= 0.0) | ((r - self.ub) >= 0.0)
         return a, rlb + rub, active.to(r.dtype)
 
@@ -58,4 +61,5 @@ class ActivationWeightedQuadraticBarrier(Activation):
               + torch.clamp(r - self.ub, min=0.0))
         wrb = self.weights * rb
         active = ((r - self.lb) <= 0.0) | ((r - self.ub) >= 0.0)
-        return 0.5 * (rb * wrb).sum(-1), wrb, self.weights * active.to(r.dtype)
+        return ((0.5 * rb * wrb).sum(-1), wrb,
+                self.weights * active.to(r.dtype))

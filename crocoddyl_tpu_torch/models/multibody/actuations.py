@@ -1,6 +1,13 @@
-"""Actuation models u ↦ τ(x, u) (port of the two actuations of
-crocoddyl_tpu/models/multibody/actuations.py that the node kernel admits).
-Both are constant linear maps, so dτ/dx = 0 and dτ/du is ``dtau_du``."""
+"""Actuation models u ↦ τ(x, u) (port of
+crocoddyl_tpu/models/multibody/actuations.py: the base, ``FullActuation``
+and ``FloatingBaseActuation``).
+
+A model defines ``nu`` and ``calc``; a user subclass needs nothing more:
+the generic node takes its Jacobians with ``torch.func.jacfwd``, as the JAX
+node takes them with ``jax.jacfwd``.  The two built-in actuations, the
+ones the node kernel admits, are constant linear maps and also give that
+map, ``dtau_du``, to the kernel's lane code.
+"""
 
 from __future__ import annotations
 
@@ -17,9 +24,7 @@ class Actuation(PyTreeNode):
         raise NotImplementedError
 
     def calc(self, x, u):
-        raise NotImplementedError
-
-    def dtau_du(self, like) -> torch.Tensor:
+        """Return τ (nv,)."""
         raise NotImplementedError
 
 
@@ -49,7 +54,7 @@ class FloatingBaseActuation(Actuation):
                                       device=u.device), u], dim=-1)
 
     def dtau_du(self, like):
-        """The constant [0; I] map (the JAX node takes it by jacfwd)."""
+        """The constant [0; I] map."""
         return torch.cat([
             torch.zeros((6, self.nu), dtype=like.dtype, device=like.device),
             torch.eye(self.nu, dtype=like.dtype, device=like.device)])

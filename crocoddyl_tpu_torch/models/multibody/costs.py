@@ -1,15 +1,22 @@
-"""Residual cost containers (port of the seven costs of
-crocoddyl_tpu/models/multibody/costs.py that the node kernel admits).
+"""Residual-based costs (port of crocoddyl_tpu/models/multibody/costs.py:
+the seven costs of the node kernel, FramePlacement and FrameRotation).
 
 Each cost holds its references, an activation, a weight and a 0/1 active
-flag.  Residuals, Jacobians and the Gauss-Newton assembly are computed by
-the node linearization (ops/fused_node.py), so the classes carry data only.
+flag.  ``residual(st, cache, x, u)`` reads the node's kinematic sweep and
+contact forces (``nodes.NodeCache``); ``residual_jac_x`` is the closed-form
+kinematic part of its x-Jacobian (nr, ndx), or None for a cost without one
+(the node then linearizes the sweep); the node adds the force chain
+(∂r/∂λ)·dλ and assembles the Gauss-Newton terms.  For a node the node
+kernel admits, ops/fused_node.py computes all of it in lane layout.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...dynamics import lie
+from ...dynamics.lie import cross
+from ...dynamics.spatial import Transform
 from ...utils.struct import PyTreeNode, field
 from .activations import Activation
 from .frames import FrictionCone
@@ -20,20 +27,80 @@ class Cost(PyTreeNode):
     weight: torch.Tensor
     active: torch.Tensor  # 0/1
 
+    @property
+    def nr(self):
+        """Residual size; None for a state cost, whose size is the state's
+        ndx (``cost_nr`` resolves it)."""
+        return None if isinstance(self, CostState) else cost_nr(self, None)
+
+    def residual(self, st, cache, x, u):
+        raise NotImplementedError
+
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        """Closed-form x-Jacobian of the residual (nr, ndx), or None for
+        the generic sweep linearization; ``ft_of(fid)`` gives the frame's
+        ``algorithms.FrameTangents``."""
+        return None
+
 
 class CostState(Cost):
     """r = x ⊖ xref."""
     xref: torch.Tensor = None
+
+    def residual(self, st, cache, x, u):
+        return st.diff(self.xref, x)
+
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        return st.jdiff(self.xref, x)[1]
 
 
 class CostControl(Cost):
     """r = u − uref."""
     uref: torch.Tensor = None
 
+    def residual(self, st, cache, x, u):
+        return u - self.uref
+
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        return x.new_zeros((self.uref.shape[-1], st.ndx))
+
 
 class CostCoM(Cost):
     """r = com(q) − cref."""
     cref: torch.Tensor = None
+
+    def residual(self, st, cache, x, u):
+        return cache.kin.com() - self.cref
+
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        # dcom/dq_d = (m_sub·Sv + Sw × c_sub)/M with the subtree mass and
+        # first moment of each dof (costs.py:81-95)
+        kin = cache.kin
+        m, S = kin.model.mass, kin.Jcols
+        msub = kin.amask.T @ m
+        csub = kin.amask.T @ (m[:, None] * kin.I_w.c)
+        dcom_q = (msub[:, None] * S[:, :3] + cross(S[:, 3:], csub)) / m.sum()
+        return torch.cat([dcom_q.T, x.new_zeros((3, st.ndx - S.shape[0]))],
+                         dim=1)
+
+
+class CostFramePlacement(Cost):
+    """r = log6(Mref⁻¹ · oMf)."""
+    fid: int = field(static=True, default=0)
+    ref_R: torch.Tensor = None
+    ref_p: torch.Tensor = None
+
+    def _log(self, cache):
+        oMf = cache.frame_placement(self.fid)
+        rel = Transform(self.ref_R, self.ref_p).inverse().compose(oMf)
+        return lie.log6(rel.R, rel.p)
+
+    def residual(self, st, cache, x, u):
+        return self._log(cache)
+
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        Jri = lie.jac_se3_right_inv(self._log(cache))
+        return Jri @ ft_of(self.fid).dxi.T
 
 
 class CostFrameTranslation(Cost):
@@ -41,17 +108,54 @@ class CostFrameTranslation(Cost):
     fid: int = field(static=True, default=0)
     pref: torch.Tensor = None
 
+    def residual(self, st, cache, x, u):
+        return cache.frame_placement(self.fid).p - self.pref
+
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        return ft_of(self.fid).dp.T
+
+
+class CostFrameRotation(Cost):
+    """r = log3(Rrefᵀ · R_frame)."""
+    fid: int = field(static=True, default=0)
+    ref_R: torch.Tensor = None
+
+    def _log(self, cache):
+        R = cache.frame_placement(self.fid).R
+        return lie.log3(lie.mm(self.ref_R.transpose(-1, -2), R))
+
+    def residual(self, st, cache, x, u):
+        return self._log(cache)
+
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        Jri = lie.jac_so3_right_inv(self._log(cache))
+        return Jri @ ft_of(self.fid).dxi[:, 3:].T
+
 
 class CostFrameVelocity(Cost):
     """r = v_frame (local) − vref."""
     fid: int = field(static=True, default=0)
     vref: torch.Tensor = None
 
+    def residual(self, st, cache, x, u):
+        return cache.frame_velocity(self.fid) - self.vref
+
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        return ft_of(self.fid).dv.T
+
 
 class CostContactForce(Cost):
-    """r = λ_contact − fref."""
+    """r = λ_contact − fref (the kinematic part of its Jacobian is zero;
+    the node adds the force chain)."""
     contact_idx: int = field(static=True, default=0)
     fref: torch.Tensor = None
+
+    def residual(self, st, cache, x, u):
+        f = cache.contact_force(self.contact_idx)
+        return f[:self.fref.shape[-1]] - self.fref
+
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        return x.new_zeros((self.fref.shape[-1], st.ndx))
 
 
 class CostContactFrictionCone(Cost):
@@ -59,16 +163,23 @@ class CostContactFrictionCone(Cost):
     contact_idx: int = field(static=True, default=0)
     cone: FrictionCone = None
 
+    def residual(self, st, cache, x, u):
+        return lie.mv(self.cone.A, cache.contact_force(self.contact_idx)[:3])
 
-def cost_nr(cost: Cost, ndx: int) -> int:
-    """Static residual size of a cost item."""
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        return x.new_zeros((self.cone.A.shape[-2], st.ndx))
+
+
+def cost_nr(cost: Cost, st) -> int:
+    """Static residual size of a cost item on the state ``st``
+    (costs.py:311-329)."""
     if isinstance(cost, CostState):
-        return ndx
+        return st.ndx
     if isinstance(cost, CostControl):
         return cost.uref.shape[-1]
-    if isinstance(cost, (CostCoM, CostFrameTranslation)):
+    if isinstance(cost, (CostCoM, CostFrameTranslation, CostFrameRotation)):
         return 3
-    if isinstance(cost, CostFrameVelocity):
+    if isinstance(cost, (CostFramePlacement, CostFrameVelocity)):
         return 6
     if isinstance(cost, CostContactForce):
         return cost.fref.shape[-1]

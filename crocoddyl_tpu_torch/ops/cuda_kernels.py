@@ -345,7 +345,7 @@ class _Descriptor:
                    6: "fref"}.get(ctype)
             ref_off = add(ci.cone.A if ctype == 5 else getattr(ci, ref))
             idx = getattr(ci, "fid", getattr(ci, "contact_idx", 0))
-            nr = cost_nr(ci, ndx)
+            nr = cost_nr(ci, st)
             if ctype > 1:
                 dense = max(dense, nr)
             cost_ints += [ctype, _ACT_TYPES.index(type(act).__name__), idx,

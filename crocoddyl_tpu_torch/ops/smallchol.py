@@ -1,6 +1,7 @@
 """Cholesky factor and solve of small matrices with NaN-on-failure
 semantics (port of the part of crocoddyl_tpu/ops/smallchol.py that the
-generic backward pass uses: ``chol`` and ``cho_solve``).
+generic backward pass and the generic node use: ``chol``, ``cho_solve``
+and ``pd_solve``).
 
 The JAX version unrolls the factorization so that a pivot that is not
 positive turns into NaN through the square root, and the solvers read a
@@ -30,3 +31,8 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if b.dim() == L.dim() - 1:
         return torch.cholesky_solve(b[..., None], L)[..., 0]
     return torch.cholesky_solve(b, L)
+
+
+def pd_solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """M⁻¹ b for positive-definite M (smallchol.py:97-99)."""
+    return cho_solve(chol(M), b)

@@ -33,18 +33,27 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @functools.lru_cache(maxsize=None)
-def jax_walk():
-    """(prob, xs0, us0, x0s) of the reduced walk (step_knots=3,
-    support_knots=1), B=3 velocity-perturbed initial states from a numpy
-    seed — the construction of tests/test_fddp_batch.py:19-36."""
+def jax_walk_problem():
+    """The JAX reduced walk (step_knots=3, support_knots=1) of
+    ``jax_walk``, without its warm start."""
     from crocoddyl_tpu.apps.gaits import QuadrupedGaitFactory
     from crocoddyl_tpu.dynamics import robots
     m = robots.anymal(dtype=np.float64)
     q0 = robots.anymal_standing_q(m)
     x0 = jnp.concatenate([q0, jnp.zeros(m.nv)])
     fac = QuadrupedGaitFactory(m, FEET, default_q=np.asarray(q0))
-    prob = fac.walking_problem(x0, 0.25, 0.15, 1e-2,
+    return fac.walking_problem(x0, 0.25, 0.15, 1e-2,
                                step_knots=3, support_knots=1)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_walk():
+    """(prob, xs0, us0, x0s) of the reduced walk (step_knots=3,
+    support_knots=1), B=3 velocity-perturbed initial states from a numpy
+    seed — the construction of tests/test_fddp_batch.py:19-36."""
+    prob = jax_walk_problem()
+    m = prob.state.model
+    x0 = prob.x0
     xs0 = jnp.tile(prob.x0[None], (prob.T + 1, 1))
     us0 = jax.jit(prob.quasi_static)(xs0)
     dv = 0.01 * np.random.default_rng(0).standard_normal((B, m.nv))
@@ -179,9 +188,10 @@ def solve_cache(tmp_path_factory):
     return str(path)
 
 
-def _compute(entry, path, nice):
-    """Run the child of ``solve_pair`` for ``entry`` into ``path`` (niced
-    with ``nice``); its stderr on failure, else None."""
+def _run_child(script, args, path, nice, timeout=1200):
+    """Run ``script`` in a fresh Python process with ``args`` and a
+    temporary output path, then move its output to ``path`` (niced with
+    ``nice``); its stderr on failure, else None."""
     tmp = f"{path}.{os.getpid()}.part.npz"
     env = {k: v for k, v in os.environ.items()
            if k != "PYTEST_XDIST_TESTRUNUID"}  # the child prefetches nothing
@@ -189,13 +199,18 @@ def _compute(entry, path, nice):
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + " --xla_cpu_multi_thread_eigen=false").strip()
     res = subprocess.run(
-        [sys.executable, "-c", _SOLVE_CHILD, entry, tmp, str(os.getpid()),
+        [sys.executable, "-c", script, *args, tmp, str(os.getpid()),
          "nice" if nice else "normal"], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=1200)
+        capture_output=True, text=True, timeout=timeout)
     if res.returncode != 0:
         return res.stderr[-4000:] or f"exit code {res.returncode}"
     os.replace(tmp, path)
     return None
+
+
+def _compute(entry, path, nice):
+    """Run the child of ``solve_pair`` for ``entry`` into ``path``."""
+    return _run_child(_SOLVE_CHILD, [entry], path, nice)
 
 
 def _replacement_worker():
@@ -277,6 +292,78 @@ if _shared_dir():
     _prefetch(_shared_dir())
 
 
+# ---------------------------------------------------------------------------
+# JAX references computed in child processes, beside the port's own work
+# ---------------------------------------------------------------------------
+
+_REF_CHILD = """
+import ctypes, importlib, os, signal, sys
+ctypes.CDLL(None).prctl(1, int(signal.SIGKILL))
+module, name, arg, path, ppid, nice = sys.argv[1:7]
+if os.getppid() != int(ppid):
+    sys.exit(1)
+if nice == "nice":
+    os.nice(10)
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+out = getattr(importlib.import_module(module), name)(arg)
+np.savez(path, **out)
+"""
+
+# children of ``start_references`` running at once in one process
+_REF_SLOTS = threading.BoundedSemaphore(9)
+
+
+def _ref_path(job, cache_dir):
+    return os.path.join(cache_dir, "ref_" + job.replace(":", "_") + ".npz")
+
+
+def start_references(jobs, cache_dir):
+    """Compute the JAX references ``jobs`` in child processes, started from
+    threads of this process, so that they run beside the port's own
+    computations; a job another process has taken (its file lock) or
+    finished is skipped.  At most 9 children run at once, niced.  A job is
+    ``"module:function:arg"``: the child calls ``module.function(arg)`` and
+    saves the dict of numpy arrays it returns.  Read a result with
+    ``reference``."""
+    def run(job, path, lock):
+        try:
+            with _REF_SLOTS:
+                _run_child(_REF_CHILD, job.split(":"), path, nice=True)
+        finally:
+            lock.close()
+    for job in jobs:
+        path = _ref_path(job, cache_dir)
+        lock = open(path + ".lock", "w")
+        try:
+            fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            lock.close()
+            continue
+        if os.path.exists(path):
+            lock.close()
+            continue
+        threading.Thread(target=run, args=(job, path, lock), daemon=True,
+                         name=f"reference {job}").start()
+
+
+def reference(job, cache_dir):
+    """The arrays of the JAX reference ``job`` (see ``start_references``):
+    waits for the process computing it, or computes it at normal priority
+    if no one did (its holder died)."""
+    path = _ref_path(job, cache_dir)
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            err = _run_child(_REF_CHILD, job.split(":"), path, nice=False)
+            if err is not None:
+                raise RuntimeError(f"{job} failed:\n{err}")
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
 def describe(obj, path=""):
     """Structure description of a flax-dataclass pytree for
     ``crocoddyl_tpu_torch.io.convert.problem_from_numpy``."""
@@ -304,9 +391,12 @@ def leaves_of(obj):
     return {jax.tree_util.keystr(p): np.asarray(l) for p, l in flat}
 
 
-def to_port(obj):
+def to_port(obj, classes=None):
+    """The port's counterpart of a JAX pytree; ``classes`` names port
+    classes the package does not have (a test's own subclasses)."""
     from crocoddyl_tpu_torch.io.convert import problem_from_numpy
-    return problem_from_numpy(leaves_of(obj), describe(obj))
+    return problem_from_numpy(leaves_of(obj), describe(obj),
+                              classes=classes)
 
 
 def t64(a):

@@ -65,7 +65,8 @@ def test_descriptor_tables():
     dt_off = meta[10]
     torch.testing.assert_close(desc.par[:, dt_off], knots.dt.reshape(-1),
                                rtol=0, atol=0)
-    assert desc.nr == sum(cost_nr(c, 36) for c in knots.costs.items)
+    assert desc.nr == sum(cost_nr(c, knots.state_)
+                          for c in knots.costs.items)
     assert float(desc.robot[-1]) == float(knots.kkt_damping)
     # the joint-depth table the rollout kernels' sweep walks by level: the
     # base, then the 4 hips, thighs and shanks

@@ -29,10 +29,12 @@ def test_anymal_arrays_equal_exactly():
                                   np_(trob.anymal_standing_q(tm)))
 
 
-@pytest.mark.parametrize("fn", ["exp3", "log3", "exp6", "log6", "state"])
+@pytest.mark.parametrize("fn", ["exp3", "log3", "exp6", "log6", "state",
+                                "quat", "so3_jacobians", "se3_jacobians"])
 def test_lie_and_state_match(fn):
-    """Lie integrate/diff and StateMultibody diff/integrate at random
-    (q, dq), to 1e-12."""
+    """Lie integrate/diff, the quaternion helpers, the SO(3)/SE(3)
+    Jacobians and StateMultibody diff/integrate at random (q, dq), to
+    1e-12."""
     from crocoddyl_tpu.dynamics import lie as jl
     from crocoddyl_tpu.dynamics.states import StateMultibody as JState
     from crocoddyl_tpu.dynamics import robots as jrob
@@ -53,6 +55,33 @@ def test_lie_and_state_match(fn):
         R, p = (np.asarray(a) for a in jl.exp6(jnp.asarray(xi)))
         pairs = [(jl.log6(jnp.asarray(R), jnp.asarray(p)),
                   tl.log6(t64(R), t64(p)))]
+    elif fn == "quat":
+        qa, qb = (np.asarray(jl.quat_exp(jnp.asarray(a))) for a in (w, w[::-1]))
+        pairs = [(jl.quat_exp(jnp.asarray(w)), tl.quat_exp(t64(w))),
+                 (jl.quat_mul(jnp.asarray(qa), jnp.asarray(qb)),
+                  tl.quat_mul(t64(qa), t64(qb))),
+                 (jl.quat_conj(jnp.asarray(qa)), tl.quat_conj(t64(qa))),
+                 (jl.quat_identity(), tl.quat_identity())]
+    elif fn == "so3_jacobians":
+        pairs = [(getattr(jl, f)(jnp.asarray(w)), getattr(tl, f)(t64(w)))
+                 for f in ("jac_so3_right", "jac_so3_right_inv")]
+        S = np.asarray(jl.skew(jnp.asarray(w)))
+        pairs.append((jl.unskew(jnp.asarray(S)), tl.unskew(t64(S))))
+    elif fn == "se3_jacobians":
+        xi[:4, 3:] *= 1e-9
+        R, p = (np.asarray(a) for a in jl.exp6(jnp.asarray(xi)))
+        pairs = [(getattr(jl, f)(jnp.asarray(xi)), getattr(tl, f)(t64(xi)))
+                 for f in ("jac_se3_left", "jac_se3_right",
+                           "jac_se3_right_inv")]
+        pairs.append((jl.se3_adjoint(jnp.asarray(R), jnp.asarray(p)),
+                      tl.se3_adjoint(t64(R), t64(p))))
+        from crocoddyl_tpu.dynamics import spatial as jsp
+        from crocoddyl_tpu_torch.dynamics import spatial as tsp
+        pairs.append((jsp.Transform(jnp.asarray(R), jnp.asarray(p))
+                      .act_force_inv(jnp.asarray(xi)),
+                      tsp.Transform(t64(R), t64(p)).act_force_inv(t64(xi))))
+        pairs += list(zip(jsp.transform_identity(batch=(2,)),
+                          tsp.transform_identity(batch=(2,))))
     else:
         jm, tm = jrob.anymal(dtype=np.float64), trob.anymal()
         js, ts = JState(model=jm), TState(model=tm)

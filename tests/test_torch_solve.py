@@ -144,11 +144,14 @@ def test_solve_multi_iteration_matches_jax(solve_cache):  # noqa: F811
                                   "box_without_bounds"])
 def test_solve_gate_refuses(case):
     """What ``solve`` still refuses raises a ValueError that says why: the
-    multiple-shooting forward pass, several segments, a node the node
-    kernel does not admit that is not an ActionModel, a box solve without
-    bounds."""
-    from crocoddyl_tpu_torch import SolverSettings, box_fddp_settings, solve
+    multiple-shooting forward pass, several segments, a box solve without
+    bounds.  An RK4 node, which the node kernel does not admit, is a
+    generic ``RigidBodyNode`` that ``solve`` takes; ``solve_batch`` (and
+    kernels 4 and 5) refuse it."""
+    from crocoddyl_tpu_torch import (SolverSettings, box_fddp_settings,
+                                     solve, solve_batch)
     from crocoddyl_tpu_torch.core.solvers import fddp
+    from crocoddyl_tpu_torch.ops import fused_scans
     prob = to_port(jax_walk()[0])
     settings = SolverSettings(maxiter=1, **SEQ)
     assert fddp.supports(prob, settings)
@@ -158,10 +161,17 @@ def test_solve_gate_refuses(case):
                                     == "ms_chunk")
     elif case == "two_segments":
         prob = prob.replace(running=(prob.running, prob.running))
-    elif case == "running_rk4":
-        prob = prob.replace(running=prob.running.replace(integrator="rk4"))
-    elif case == "terminal_rk4":
-        prob = prob.replace(terminal=prob.terminal.replace(integrator="rk4"))
+    elif case.endswith("rk4"):
+        stack = case.split("_")[0]
+        prob = prob.replace(**{stack: getattr(prob, stack).replace(
+            integrator="rk4")})
+        assert fddp.supports(prob, settings) and not prob.on_lanes
+        assert fused_scans.supports_problem(prob, settings) == (
+            stack == "terminal")
+        with pytest.raises(ValueError, match=match):
+            solve_batch(prob, prob.x0[None], settings=settings,
+                        device="cpu")
+        return
     else:
         settings = box_fddp_settings(maxiter=1)
         match = "requires control bounds"
