@@ -1,11 +1,14 @@
 """crocoddyl_tpu_torch — the PyTorch/CUDA port of crocoddyl_tpu.
 
 It carries the rigid-body node (``RigidBodyNode``: free or contact
-dynamics, armature, Euler or RK4, with closed-form derivatives for every
-structure), the robot models (ANYmal B, the programmatic quadruped, the
-pendulum, double pendulum, cart-pole and 7-DoF arm), the quadruped gaits
-(the walking, trotting, pacing, bounding, jumping and CoM problem
-factory), the MPC horizon rotation and warm-start shift, the unicycle and
+dynamics with point or placement contacts, armature, Euler or RK4, with
+closed-form derivatives for every structure), the robot models (ANYmal B,
+the programmatic quadruped, the biped, the humanoid, the quadrotor, the
+pendulum, double pendulum, cart-pole and 7-DoF arm), the gait factories
+(the quadruped's walking, trotting, pacing, bounding, jumping and CoM
+problems; the biped's walk, squat, balance, jump and CoM problems, with
+the CoP support costs of the thesis), the RH5 analysis (CoPs, ZMPs, the
+CSV log), the MPC horizon rotation and warm-start shift, the unicycle and
 LQR models, the batch-native ``solve_batch`` over three hand-written CUDA
 kernels (node linearization, Riccati backward pass, trial rollout) and the
 single-problem ``solve``: FDDP, DDP and their box-constrained variants,
@@ -29,15 +32,16 @@ from .core.solvers.fddp import (Solution, SolverSettings, Trace,
                                 ddp_settings, fddp_settings, polish, solve)
 from .core.solvers.fddp_batch import solve_batch
 from .dynamics import robots
-from .dynamics.robots import arm7, cartpole, double_pendulum, pendulum
+from .dynamics.robots import (arm7, biped, cartpole, double_pendulum,
+                              humanoid, pendulum, quadrotor)
 from .models.multibody.costs import CostFramePlacement, CostFrameRotation
 from .models.multibody.nodes import CostStack, RigidBodyNode
 
 __all__ = ["ActionModel", "CostFramePlacement", "CostFrameRotation",
            "CostStack", "NodeDerivs", "RigidBodyNode", "ShootingProblem",
            "Solution", "SolverSettings", "StateVector", "Trace", "arm7",
-           "box_ddp_settings", "box_fddp_settings", "cartpole",
+           "biped", "box_ddp_settings", "box_fddp_settings", "cartpole",
            "circular_append", "ddp_settings", "double_pendulum",
-           "fddp_settings", "pendulum", "polish", "replicate_model",
-           "robots", "shift_warm_start", "solve", "solve_batch",
-           "stack_models"]
+           "fddp_settings", "humanoid", "pendulum", "polish", "quadrotor",
+           "replicate_model", "robots", "shift_warm_start", "solve",
+           "solve_batch", "stack_models"]

@@ -1,13 +1,18 @@
-"""Quadruped gait factory (port of ``QuadrupedGaitFactory`` and
-``_LocomotionFactory`` of crocoddyl_tpu/apps/gaits.py): the CoM shift, the
-jump, and the walking, trotting, pacing and bounding gaits.
+"""Locomotion problem factories (port of crocoddyl_tpu/apps/gaits.py:
+``_LocomotionFactory``, ``QuadrupedGaitFactory`` and ``BipedGaitFactory``):
+the CoM shift, the jump, the quadruped's walking, trotting, pacing and
+bounding gaits, and the biped's walk, squat and single-leg balance.
 
 Every knot shares ONE structure — a RigidBodyNode with the full maximal
 contact set and cost stack — and per-knot differences (contact activity,
 task references, weights, dt) are tensor leaves; ``stack_models`` stacks
 the knots into one segment.  Foot switches are pseudo-impulse knots (dt=0,
-boosted weights), so the walk is a single segment.  Everything is built in
-float64 on the host; ``tree_map`` moves the problem to a device or dtype.
+boosted weights), so a problem is a single segment.  A factory with
+``contact_dim = 6`` (the biped) gives placement contacts and placement
+foot tasks, and with ``cop_box = (length, width)`` a CoP support cost on
+every supporting foot: the CoP-constrained DDP of the thesis.  Everything
+is built in float64 on the host; ``tree_map`` moves the problem to a
+device or dtype.
 """
 
 from __future__ import annotations
@@ -25,11 +30,11 @@ from ..dynamics.states import StateMultibody
 from ..models.multibody.activations import (
     ActivationQuad, ActivationQuadraticBarrier, ActivationWeightedQuad)
 from ..models.multibody.actuations import FloatingBaseActuation
-from ..models.multibody.contacts import Contact3D, ContactSet
+from ..models.multibody.contacts import Contact3D, Contact6D, ContactSet
 from ..models.multibody.costs import (
-    CostCoM, CostContactFrictionCone, CostControl, CostFrameTranslation,
-    CostFrameVelocity, CostState)
-from ..models.multibody.frames import friction_cone
+    CostCoM, CostContactCoP, CostContactFrictionCone, CostControl,
+    CostFramePlacement, CostFrameTranslation, CostFrameVelocity, CostState)
+from ..models.multibody.frames import cop_support, friction_cone
 from ..models.multibody.nodes import CostStack, RigidBodyNode
 
 
@@ -44,8 +49,16 @@ def _fk_positions(model: RobotModel, q, fids):
             for f in fids]
 
 
+def _pseudo_impulse_only(pseudo_impulse: bool) -> None:
+    if not pseudo_impulse:
+        raise ValueError("pseudo_impulse=False needs the true impulse switch "
+                         "knot (ImpulseNode), which the port does not have: "
+                         "only pseudo-impulse switch knots are built")
+
+
 class _LocomotionFactory:
-    contact_gains = (0.0, 50.0)
+    contact_gains = (0.0, 50.0)   # Baumgarte (Kp, Kv)
+    contact_dim = 3               # 3: point contact, 6: placement contact
     w_com = 1e6
     w_foot_track = 1e6
     w_foot_track_switch = 1e7
@@ -55,6 +68,8 @@ class _LocomotionFactory:
     w_ctrl = 1e-1
     w_ctrl_switch = 1e-3
     w_state_bounds = 0.0
+    w_cop = 1e3
+    cop_box = None                # (length, width): CoP costs (6D only)
 
     def __init__(self, model: RobotModel, foot_names: Sequence[str],
                  mu: float = 0.7, default_q=None):
@@ -89,30 +104,56 @@ class _LocomotionFactory:
         v_l = m.v_limit.numpy()
         return (np.concatenate([q_lb, -v_l]), np.concatenate([q_ub, v_l]))
 
+    def _make_contact(self, fid, foot_pos0, on):
+        """A point contact at the world origin, or a placement contact at
+        the foot's default placement (gaits.py:118-126)."""
+        if self.contact_dim == 3:
+            return Contact3D(fid=fid, pref=_t(np.zeros(3)),
+                             gains=_t(self.contact_gains), active=_t(on))
+        return Contact6D(fid=fid, ref_R=_t(np.eye(3)), ref_p=_t(foot_pos0),
+                         gains=_t(self.contact_gains), active=_t(on))
+
+    def _make_foot_track_cost(self, fid, ref, w, active):
+        """Foot translation task, or placement task with an identity
+        rotation (gaits.py:128-136)."""
+        if self.contact_dim == 3:
+            return CostFrameTranslation(
+                fid=fid, pref=_t(ref), activation=ActivationQuad(),
+                weight=_t(w), active=_t(active))
+        return CostFramePlacement(
+            fid=fid, ref_R=_t(np.eye(3)), ref_p=_t(ref),
+            activation=ActivationQuad(), weight=_t(w), active=_t(active))
+
     def _make_node(self, dt, support, com_task=None, foot_tasks=None,
                    switch=False):
         """One knot (quadruped.py createSwingFootModel /
-        createPseudoImpulseModel)."""
+        createPseudoImpulseModel; gaits.py:138-231)."""
         foot_tasks = foot_tasks or {}
         support = set(support)
         nu = self.model.nv - 6
         contacts, cone_costs, track_costs, vel_costs = [], [], [], []
+        cop_costs = []
         for i, fid in enumerate(self.feet):
             on = 1.0 if i in support else 0.0
-            contacts.append(Contact3D(fid=fid, pref=_t(np.zeros(3)),
-                                      gains=_t(self.contact_gains),
-                                      active=_t(on)))
+            contacts.append(self._make_contact(fid, self._default_foot_pos[i],
+                                               on))
             cone_costs.append(CostContactFrictionCone(
                 contact_idx=i, cone=self.cone,
                 activation=ActivationQuadraticBarrier(lb=self.cone.lb,
                                                       ub=self.cone.ub),
                 weight=_t(self.w_friction), active=_t(on)))
+            if self.cop_box is not None and self.contact_dim == 6:
+                # the thesis cost: A·f ≥ 0 on every supporting foot
+                cop_costs.append(CostContactCoP(
+                    contact_idx=i, support=cop_support(*self.cop_box),
+                    activation=ActivationQuadraticBarrier(
+                        lb=_t(np.zeros(4)), ub=_t(np.full(4, np.inf))),
+                    weight=_t(self.w_cop), active=_t(on)))
             tracked = i in foot_tasks
             w_track = self.w_foot_track_switch if switch else self.w_foot_track
-            track_costs.append(CostFrameTranslation(
-                fid=fid, pref=_t(foot_tasks.get(i, np.zeros(3))),
-                activation=ActivationQuad(), weight=_t(w_track),
-                active=_t(1.0 if tracked else 0.0)))
+            track_costs.append(self._make_foot_track_cost(
+                fid, foot_tasks.get(i, np.zeros(3)), w_track,
+                1.0 if tracked else 0.0))
             vel_costs.append(CostFrameVelocity(
                 fid=fid, vref=_t(np.zeros(6)), activation=ActivationQuad(),
                 weight=_t(self.w_impulse_vel),
@@ -124,7 +165,7 @@ class _LocomotionFactory:
             CostCoM(cref=_t(com_task if com_task is not None else np.zeros(3)),
                     activation=ActivationQuad(), weight=_t(self.w_com),
                     active=_t(1.0 if com_task is not None else 0.0)),
-            *track_costs, *vel_costs, *cone_costs,
+            *track_costs, *vel_costs, *cone_costs, *cop_costs,
             CostState(xref=_t(self.default_state),
                       activation=ActivationWeightedQuad(weights=_t(sw ** 2)),
                       weight=_t(self.w_state_reg), active=_t(1.0)),
@@ -314,3 +355,98 @@ class QuadrupedGaitFactory(_LocomotionFactory):
         return self._pairs_problem(x0, step_length, step_height, dt,
                                    step_knots, support_knots, (0, 1), (2, 3),
                                    half_first=False)
+
+
+class BipedGaitFactory(_LocomotionFactory):
+    """SimpleBipedGaitProblem (gaits.py:460-571): feet order (right, left),
+    6D sole contacts with zero Baumgarte gains, placement foot tasks."""
+
+    contact_dim = 6
+    contact_gains = (0.0, 0.0)
+    w_foot_track_switch = 1e8
+    w_state_bounds = 0.0
+
+    # biped.py:204: the running knots weigh the state as the switch knots
+    _state_weights_running = _LocomotionFactory._state_weights_switch
+
+    def walking_problem(self, x0, step_length, step_height, dt,
+                        step_knots, support_knots,
+                        pseudo_impulse=True) -> ShootingProblem:
+        """Double support, right step, double support, left step
+        (gaits.py:485-504)."""
+        _pseudo_impulse_only(pseudo_impulse)
+        x0 = np.asarray(x0)
+        com_ref, (rf, lf) = self._com_ref(x0[:self.model.nq])
+        R, L = 0, 1
+        first = 0.5 if self.first_step else 1.0
+        self.first_step = False
+        both = (R, L)
+        models = [self._make_node(dt, both) for _ in range(support_knots)]
+        models += self._footstep_models(com_ref, [rf], first * step_length,
+                                        step_height, dt, step_knots, [L], [R])
+        models += [self._make_node(dt, both) for _ in range(support_knots)]
+        models += self._footstep_models(com_ref, [lf], step_length,
+                                        step_height, dt, step_knots, [R], [L])
+        return self._problem(x0, models)
+
+    def squat_problem(self, x0, height_change, num_knots, dt,
+                      recovery_knots: int = 20) -> ShootingProblem:
+        """The CoM descends ``height_change`` over the first half of the
+        horizon and returns over the second, then holds the reference for
+        ``recovery_knots`` knots (gaits.py:509-530)."""
+        x0 = np.asarray(x0)
+        com_ref, _ = self._com_ref(x0[:self.model.nq])
+        both = (0, 1)
+        models = []
+        ph = num_knots / 2
+        for k in range(num_knots):
+            if k < ph:
+                dz = -height_change * (k + 1) / ph
+            elif k == ph:
+                dz = -height_change
+            else:
+                dz = -height_change * (1 - (k - ph) / ph)
+            models.append(self._make_node(
+                dt, both, com_task=com_ref + np.array([0.0, 0.0, dz])))
+        models += [self._make_node(dt, both, com_task=com_ref)
+                   for _ in range(recovery_knots)]
+        return self._problem(x0, models)
+
+    def balancing_problem(self, x0, support_knots, shift_knots,
+                          balance_knots, dt, lift=(0.0, -0.05, 0.05),
+                          pseudo_impulse: bool = True) -> ShootingProblem:
+        """Shift the CoM over the left foot, raise the right foot along
+        ``lift`` and bring it back, replant it with a pseudo-impulse knot,
+        shift the CoM back and hold the default pose (gaits.py:532-571)."""
+        _pseudo_impulse_only(pseudo_impulse)
+        R, L = 0, 1
+        x0 = np.asarray(x0)
+        com_ref, (rf, lf) = self._com_ref(x0[:self.model.nq])
+        both = (R, L)
+        models = [self._make_node(dt, both) for _ in range(support_knots)]
+        com_y = lf[1] - com_ref[1]
+        for k in range(shift_knots):
+            models.append(self._make_node(dt, both, com_task=com_ref
+                                          + np.array([0.0, com_y * (k + 1)
+                                                      / shift_knots, 0.0])))
+        com_over_lf = np.array([com_ref[0], lf[1], com_ref[2]])
+        lift = np.asarray(lift, np.float64)
+        ph = balance_knots / 2
+        for k in range(balance_knots):
+            if k < ph:
+                ft = rf + lift * ((k + 1) / ph)
+            elif k == ph:
+                ft = rf + lift
+            else:
+                ft = rf + lift * (1 - (k - ph) / ph)
+            models.append(self._make_node(dt, (L,), com_task=com_over_lf,
+                                          foot_tasks={R: ft}))
+        models.append(self._make_node(0.0, both, foot_tasks={R: rf},
+                                      switch=True))
+        for k in range(shift_knots):
+            models.append(self._make_node(dt, both, com_task=com_ref
+                                          + np.array([0.0, com_y * (1 - k
+                                                      / shift_knots), 0.0])))
+        models += [self._make_node(dt, both, com_task=com_ref)
+                   for _ in range(support_knots)]
+        return self._problem(x0, models)

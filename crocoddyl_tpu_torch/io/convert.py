@@ -29,15 +29,15 @@ def _classes():
     from ..dynamics.model import RobotModel
     from ..dynamics.states import StateMultibody
     from ..models.lqr import DiffLQRModel, LQRModel
-    from ..models.multibody import activations, actuations, contacts, costs
-    from ..models.multibody.frames import FrictionCone
+    from ..models.multibody import (activations, actuations, contacts, costs,
+                                    frames)
     from ..models.multibody.nodes import CostStack, RigidBodyNode
     from ..models.unicycle import UnicycleModel
     out = {c.__name__: c for c in (ShootingProblem, RobotModel,
-                                   StateMultibody, FrictionCone, CostStack,
+                                   StateMultibody, CostStack,
                                    RigidBodyNode, StateVector, UnicycleModel,
                                    LQRModel, DiffLQRModel)}
-    for mod in (activations, actuations, contacts, costs):
+    for mod in (activations, actuations, contacts, costs, frames):
         for name in dir(mod):
             obj = getattr(mod, name)
             if isinstance(obj, type) and obj.__module__ == mod.__name__:

@@ -1,5 +1,6 @@
-"""Point contacts with fixed-shape activity masks and the contact KKT
-solve (port of ``Contact3D``, ``ContactSet``, ``_contact_kkt_raw``,
+"""Point and placement contacts with fixed-shape activity masks and the
+contact KKT solve (port of ``Contact3D``, ``Contact6D``, ``ContactSet``,
+``_contact_kkt_raw``,
 ``solve_contact_kkt`` and ``pd_solve`` of
 crocoddyl_tpu/models/multibody/contacts.py).
 
@@ -17,7 +18,9 @@ from typing import Tuple
 
 import torch
 
+from ...dynamics import lie
 from ...dynamics.lie import cross
+from ...dynamics.spatial import Transform
 from ...ops import smallchol as _sc
 from ...utils.struct import PyTreeNode, field
 
@@ -54,6 +57,41 @@ class Contact3D(PyTreeNode):
         da0 = (ft.dab[:, :3] + cross(dvw, vv[None]) + cross(vw[None], dvv)
                + self.gains[0] * ft.dp + self.gains[1] * dvv)
         return -(ft.dJa[:, :3] + da0)
+
+
+class Contact6D(PyTreeNode):
+    """Placement contact: a0 = a_spatial + Kp·log6(Mref⁻¹·oMf) + Kv·v
+    (contacts.py:76-113)."""
+
+    fid: int = field(static=True)
+    ref_R: torch.Tensor = None    # (3, 3) world reference placement
+    ref_p: torch.Tensor = None    # (3,)
+    gains: torch.Tensor = None    # (2,) Baumgarte (Kp, Kv)
+    active: torch.Tensor = None   # 0/1
+
+    @property
+    def nc(self) -> int:
+        return 6
+
+    def _log(self, cache):
+        oMf = cache.frame_placement(self.fid)
+        rMf = Transform(self.ref_R, self.ref_p).inverse().compose(oMf)
+        return lie.log6(rMf.R, rMf.p)
+
+    def calc(self, cache):
+        J = cache.frame_jacobian_local(self.fid)
+        a0 = (cache.frame_bias_acc(self.fid)
+              + self.gains[0] * self._log(cache)
+              + self.gains[1] * cache.frame_velocity(self.fid))
+        return J, a0
+
+    def calc_tangent(self, cache, ft):
+        """Closed-form d(−(Jc·a + a0))/dx (ndx, 6): the log6 term chains
+        through Jlog6 applied to the placement's local twist tangent
+        (contacts.py:103-113)."""
+        dlog = ft.dxi @ lie.jac_se3_right_inv(self._log(cache)).T
+        da0 = ft.dab + self.gains[0] * dlog + self.gains[1] * ft.dv
+        return -(ft.dJa + da0)
 
 
 class ContactSet(PyTreeNode):

@@ -1,5 +1,6 @@
 """Residual-based costs (port of crocoddyl_tpu/models/multibody/costs.py:
-the seven costs of the node kernel, FramePlacement and FrameRotation).
+the seven costs of the node kernel, FramePlacement, FrameRotation, the CoP
+support cost and the centroidal momentum).
 
 Each cost holds its references, an activation, a weight and a 0/1 active
 flag.  ``residual(st, cache, x, u)`` reads the node's kinematic sweep and
@@ -16,10 +17,10 @@ import torch
 
 from ...dynamics import lie
 from ...dynamics.lie import cross
-from ...dynamics.spatial import Transform
+from ...dynamics.spatial import Inertia, Transform, cross_motion
 from ...utils.struct import PyTreeNode, field
 from .activations import Activation
-from .frames import FrictionCone
+from .frames import CoPSupport, FrictionCone
 
 
 class Cost(PyTreeNode):
@@ -170,6 +171,65 @@ class CostContactFrictionCone(Cost):
         return x.new_zeros((self.cone.A.shape[-2], st.ndx))
 
 
+class CostContactCoP(Cost):
+    """r = A_cop · f6 with a [0, ∞) barrier: the centre of pressure of a
+    contact wrench inside its sole's support rectangle (costs.py:210-224).
+    The kinematic part of its Jacobian is zero; the node adds the force
+    chain."""
+    contact_idx: int = field(static=True, default=0)
+    support: CoPSupport = None
+
+    def residual(self, st, cache, x, u):
+        f = cache.contact_force(self.contact_idx)
+        if f.shape[-1] != 6:
+            f = torch.cat([f, f.new_zeros((3,))])
+        return lie.mv(self.support.A, f)
+
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        return x.new_zeros((4, st.ndx))
+
+
+class CostCentroidalMomentum(Cost):
+    """r = A(q)·v − href (costs.py:227-289)."""
+    href: torch.Tensor = None
+
+    def residual(self, st, cache, x, u):
+        return cache.kin.centroidal_momentum() - self.href
+
+    def residual_jac_x(self, st, cache, x, u, ft_of):
+        # dh_w/dq_d = Σ_i[d⪯i](CF(I_i v_i)S_d − I_i cw_d) and dh_w/dv_d =
+        # (Σ_i[d⪯i] I_i)S_d, then the centroidal correction ang −= com × lin
+        # chained through dcom/dq (costs.py:238-289)
+        from ...dynamics import algorithms as algo
+        kin = cache.kin
+        model = kin.model
+        S, amask, vw = kin.Jcols, kin.amask, kin.vel_w
+        _, _, par_idx, not_root, dj = algo._dof_tables(kin)
+        cw = cross_motion(S, (vw[par_idx] * not_root[:, None])[dj])
+        A1 = torch.einsum("id,iab->dab", amask,
+                          algo._CF(kin.I_w.mul_motion(vw)))   # (nv, 6, 6)
+        AI = torch.einsum("id,iab->dab", amask, kin.I_w.to_matrix())
+        dh_q = ((A1 @ S[:, :, None]) - (AI @ cw[:, :, None]))[..., 0]
+        dh_v = (AI @ S[:, :, None])[..., 0]
+        lin = kin.oMi.act_force(
+            Inertia(m=model.mass, c=model.com, I_c=model.inertia)
+            .mul_motion(kin.vels)).sum(0)[:3]
+        com = kin.com()
+        m = model.mass
+        msub = amask.T @ m
+        csub = amask.T @ (m[:, None] * kin.I_w.c)
+        dcom_q = (msub[:, None] * S[:, :3] + cross(S[:, 3:], csub)) / m.sum()
+
+        def correct(dh, dcom):
+            dlin = dh[:, :3]
+            dang = dh[:, 3:] - cross(com[None], dlin)
+            if dcom is not None:
+                dang = dang - cross(dcom, lin[None])
+            return torch.cat([dlin, dang], dim=1)
+
+        return torch.cat([correct(dh_q, dcom_q), correct(dh_v, None)]).T
+
+
 def cost_nr(cost: Cost, st) -> int:
     """Static residual size of a cost item on the state ``st``
     (costs.py:311-329)."""
@@ -179,10 +239,13 @@ def cost_nr(cost: Cost, st) -> int:
         return cost.uref.shape[-1]
     if isinstance(cost, (CostCoM, CostFrameTranslation, CostFrameRotation)):
         return 3
-    if isinstance(cost, (CostFramePlacement, CostFrameVelocity)):
+    if isinstance(cost, (CostFramePlacement, CostFrameVelocity,
+                         CostCentroidalMomentum)):
         return 6
     if isinstance(cost, CostContactForce):
         return cost.fref.shape[-1]
     if isinstance(cost, CostContactFrictionCone):
         return cost.cone.A.shape[-2]
+    if isinstance(cost, CostContactCoP):
+        return 4
     raise NotImplementedError(type(cost))

@@ -1,5 +1,6 @@
-"""Linearized friction cone (port of crocoddyl_tpu/models/multibody/frames.py:
-``FrictionCone`` and ``friction_cone``)."""
+"""Linearized friction cone and CoP support region (port of
+crocoddyl_tpu/models/multibody/frames.py: ``FrictionCone``,
+``friction_cone``, ``CoPSupport`` and ``cop_support``)."""
 
 from __future__ import annotations
 
@@ -64,3 +65,22 @@ def friction_cone(normal=(0.0, 0.0, 1.0), mu: float = 0.7, nf: int = 4,
     ub[nf] = max_nforce
     return FrictionCone(A=torch.tensor(A), lb=torch.tensor(lb),
                         ub=torch.tensor(ub))
+
+
+class CoPSupport(PyTreeNode):
+    """A·f ≥ 0 keeps the centre of pressure of a 6D contact wrench f
+    inside the (length × width) support rectangle of the sole."""
+
+    A: torch.Tensor  # (4, 6)
+
+
+def cop_support(length: float, width: float) -> CoPSupport:
+    """The support rectangle's four rows over f = [f_lin; τ]
+    (frames.py:84-91)."""
+    A = np.array([
+        [0, 0, length / 2.0, 0, -1, 0],
+        [0, 0, length / 2.0, 0, 1, 0],
+        [0, 0, width / 2.0, 1, 0, 0],
+        [0, 0, width / 2.0, -1, 0, 0],
+    ], np.float64)
+    return CoPSupport(A=torch.tensor(A))

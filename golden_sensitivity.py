@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
-"""How far the JAX package's own solves of two golden anchors move under
+"""How far the JAX package's own solves of golden anchors move under
 rounding-level perturbations, on the CPU in float64.
 
-For examples/double_pendulum.py and examples/arm_manipulation.py, solve
-from x0 and from x0 with its first velocity component moved by 1e-15,
-1e-13 and 1e-11, with the example's own settings, and print converged,
-iterations, cost and the cost's rtol to tests/golden.json.  An anchor
+For the anchors examples/double_pendulum.py, examples/arm_manipulation.py,
+the CoP walk of examples/bipedal_walk_cop.py (``bipedal_walk_cop_fast``),
+examples/humanoid_taichi.py (``humanoid_taichi_fast``) and
+examples/quadrotor.py (``quadrotor``, ``quadrotor_ubound``), solve from x0
+and from x0 with its first velocity component moved by 1e-15, 1e-13 and
+1e-11, with the configuration of tests/golden_configs.py (a warm start of
+the state tiled from that x0 and the quasi-static controls where the
+example takes one), and print converged, iterations, cost and the cost's
+rtol to tests/golden.json.  An anchor
 whose solve leaves the bar of tests/test_examples_golden.py (iterations
 within 1, cost rtol 1e-5) under such a perturbation holds only
 bit-identical rounding, and a port cannot be held to it.
@@ -14,8 +19,9 @@ For the double pendulum it also runs the port's generic backward pass
 (crocoddyl_tpu_torch) and the JAX one on the same node derivatives (the
 warm start of the solve) and prints their largest gain difference.
 
-Usage: ``python3 golden_sensitivity.py`` from the repository root (CPU,
-a few minutes).
+Usage: ``python3 golden_sensitivity.py [anchor ...]`` from the repository
+root (CPU; all anchors by default, ~15 min; the biped's and the humanoid's
+solves take minutes to compile).
 """
 
 import json
@@ -35,23 +41,52 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp  # noqa: E402
 
 
-def main():
+def anchors():
+    """{golden: (problem, settings, warm)}: ``warm`` solves from the state
+    tiled from x0 and the quasi-static controls."""
     import arm_manipulation
+    import bipedal_walk_cop
     import double_pendulum
+    import humanoid_taichi
+    import quadrotor
+    import crocoddyl_tpu as ct
+    from crocoddyl_tpu.dynamics import robots
+    m = robots.biped()
+    q0 = robots.biped_standing_q(m)
+    cop = bipedal_walk_cop.CoPBipedGaitFactory(
+        m, ["right_sole", "left_sole"], default_q=np.asarray(q0))
+    cop = cop.walking_problem(jnp.concatenate([q0, jnp.zeros(m.nv)]), 0.6,
+                              0.1, 0.03, step_knots=6, support_knots=3)
+    return {
+        "double_pendulum": (double_pendulum.make_problem(),
+                            ct.SolverSettings(maxiter=300), False),
+        "arm_manipulation": (arm_manipulation.make_problem()[0],
+                             ct.ddp_settings(maxiter=100), False),
+        "bipedal_walk_cop_fast": (cop, ct.SolverSettings(maxiter=150), True),
+        "humanoid_taichi_fast": (humanoid_taichi.make_problem(T_phase=4)[0],
+                                 ct.SolverSettings(maxiter=40), True),
+        "quadrotor": (quadrotor.make_problem(),
+                      ct.SolverSettings(maxiter=200), False),
+        "quadrotor_ubound": (quadrotor.make_problem(ubound=True),
+                             ct.SolverSettings(maxiter=200), False)}
+
+
+def main(names):
     import crocoddyl_tpu as ct
     with open(os.path.join(HERE, "tests", "golden.json")) as f:
         golden = json.load(f)
-    anchors = {
-        "double_pendulum": (double_pendulum.make_problem(),
-                            ct.SolverSettings(maxiter=300)),
-        "arm_manipulation": (arm_manipulation.make_problem()[0],
-                             ct.ddp_settings(maxiter=100))}
-    for name, (prob, settings) in anchors.items():
+    table = anchors()
+    for name in names or table:
+        prob, settings, warm = table[name]
         g = golden[name]
         nq = prob.state.nq
         for eps in (0.0, 1e-15, 1e-13, 1e-11):
             p = prob.replace(x0=prob.x0.at[nq].add(eps))
-            sol = ct.solve(p, settings=settings)
+            xs = us = None
+            if warm:
+                xs = jnp.tile(p.x0[None], (p.T + 1, 1))
+                us = p.quasi_static(xs)
+            sol = ct.solve(p, xs_init=xs, us_init=us, settings=settings)
             rc = abs(float(sol.cost) - g["cost"]) / abs(g["cost"])
             ok = (bool(sol.converged) == g["converged"]
                   and abs(int(sol.iter) - g["iters"]) <= 1 and rc <= 1e-5)
@@ -60,7 +95,8 @@ def main():
                   f"rtol {rc:.3e} to the golden ({g['iters']}, "
                   f"{g['cost']!r}): bar {'met' if ok else 'not met'}",
                   flush=True)
-    riccati_gap(anchors["double_pendulum"][0])
+    if not names or "double_pendulum" in names:
+        riccati_gap(table["double_pendulum"][0])
 
 
 def riccati_gap(prob):
@@ -90,4 +126,4 @@ def riccati_gap(prob):
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
