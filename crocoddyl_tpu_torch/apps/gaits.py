@@ -3,11 +3,14 @@
 the CoM shift, the jump, the quadruped's walking, trotting, pacing and
 bounding gaits, and the biped's walk, squat and single-leg balance.
 
-Every knot shares ONE structure — a RigidBodyNode with the full maximal
-contact set and cost stack — and per-knot differences (contact activity,
-task references, weights, dt) are tensor leaves; ``stack_models`` stacks
-the knots into one segment.  Foot switches are pseudo-impulse knots (dt=0,
-boosted weights), so a problem is a single segment.  A factory with
+Every rigid-body knot shares ONE structure — a RigidBodyNode with the
+full maximal contact set and cost stack — and per-knot differences
+(contact activity, task references, weights, dt) are tensor leaves;
+``stack_models`` stacks consecutive knots of one type into a segment.
+Foot switches are pseudo-impulse knots (dt=0, boosted weights) by default,
+which keeps a problem to one segment; with ``pseudo_impulse=False`` they
+are true impact knots (``ImpulseNode``), and the problem is a tuple of
+rigid-body and impulse segments.  A factory with
 ``contact_dim = 6`` (the biped) gives placement contacts and placement
 foot tasks, and with ``cop_box = (length, width)`` a CoP support cost on
 every supporting foot: the CoP-constrained DDP of the thesis.  Everything
@@ -17,6 +20,7 @@ device or dtype.
 
 from __future__ import annotations
 
+from itertools import groupby
 from typing import List, Sequence
 
 import numpy as np
@@ -35,7 +39,7 @@ from ..models.multibody.costs import (
     CostCoM, CostContactCoP, CostContactFrictionCone, CostControl,
     CostFramePlacement, CostFrameTranslation, CostFrameVelocity, CostState)
 from ..models.multibody.frames import cop_support, friction_cone
-from ..models.multibody.nodes import CostStack, RigidBodyNode
+from ..models.multibody.nodes import CostStack, ImpulseNode, RigidBodyNode
 
 
 def _t(a) -> torch.Tensor:
@@ -47,13 +51,6 @@ def _fk_positions(model: RobotModel, q, fids):
     oMi, _ = algo.forward_kinematics(model, torch.as_tensor(q))
     return [algo.frame_placement(model, oMi, f).p.numpy().copy()
             for f in fids]
-
-
-def _pseudo_impulse_only(pseudo_impulse: bool) -> None:
-    if not pseudo_impulse:
-        raise ValueError("pseudo_impulse=False needs the true impulse switch "
-                         "knot (ImpulseNode), which the port does not have: "
-                         "only pseudo-impulse switch knots are built")
 
 
 class _LocomotionFactory:
@@ -188,10 +185,39 @@ class _LocomotionFactory:
             contacts=ContactSet(contacts=tuple(contacts)),
             dt=_t(float(dt)))
 
+    def _make_impulse_node(self, support, foot_tasks):
+        """The true impulse switch knot (gaits.py:233-262; quadruped.py
+        createImpulseModel): an impact over the landing feet, the
+        switch-weight foot tracking of the swing feet and the switch-weight
+        state regularization."""
+        foot_tasks = foot_tasks or {}
+        support = set(support)
+        impulses, track_costs = [], []
+        for i, fid in enumerate(self.feet):
+            impulses.append(self._make_contact(
+                fid, self._default_foot_pos[i], 1.0 if i in support else 0.0))
+            tracked = i in foot_tasks
+            track_costs.append(self._make_foot_track_cost(
+                fid, foot_tasks.get(i, np.zeros(3)), self.w_foot_track_switch,
+                1.0 if tracked else 0.0))
+        sw = self._state_weights_switch()
+        items = (*track_costs,
+                 CostState(xref=_t(self.default_state),
+                           activation=ActivationWeightedQuad(
+                               weights=_t(sw ** 2)),
+                           weight=_t(self.w_state_reg), active=_t(1.0)))
+        return ImpulseNode(state_=self.state,
+                           impulses=ContactSet(contacts=tuple(impulses)),
+                           costs=CostStack(items=items),
+                           nu_=self.model.nv - 6, r_coeff=_t(0.0))
+
     def _footstep_models(self, com_pos0, feet_pos0, step_length, step_height,
-                         dt, num_knots, support, swing) -> List:
-        """Swing-phase knots + a pseudo-impulse foot switch
-        (quadruped.py createFootstepModels)."""
+                         dt, num_knots, support, swing,
+                         pseudo_impulse=True) -> List:
+        """Swing-phase knots + the foot switch (quadruped.py
+        createFootstepModels; gaits.py:265-300): a pseudo-impulse knot, or
+        with ``pseudo_impulse=False`` a true impulse knot over the support
+        and the landing feet."""
         num_legs = len(support) + len(swing)
         com_pct = float(len(swing)) / num_legs
         models = []
@@ -216,17 +242,26 @@ class _LocomotionFactory:
             models.append(self._make_node(dt, support, com_task=com_task,
                                           foot_tasks=tasks))
             last_tasks = tasks
-        models.append(self._make_node(0.0, support, foot_tasks=last_tasks,
-                                      switch=True))
+        if pseudo_impulse:
+            models.append(self._make_node(0.0, support,
+                                          foot_tasks=last_tasks, switch=True))
+        else:
+            models.append(self._make_impulse_node(set(support) | set(swing),
+                                                  last_tasks))
         com_pos0 += np.array([step_length * com_pct, 0., 0.])
         for p in feet_pos0:
             p += np.array([step_length, 0., 0.])
         return models
 
     def _problem(self, x0, models) -> ShootingProblem:
-        return ShootingProblem(x0=torch.as_tensor(x0),
-                               running=stack_models(models),
-                               terminal=models[-1])
+        """Consecutive knots of one type stacked into a segment
+        (gaits.py:305-312): one segment, or a tuple of them."""
+        segments = tuple(stack_models(list(grp))
+                         for _, grp in groupby(models, key=type))
+        return ShootingProblem(
+            x0=torch.as_tensor(x0),
+            running=segments[0] if len(segments) == 1 else segments,
+            terminal=models[-1])
 
     def _com_ref(self, q0):
         pos = _fk_positions(self.model, q0, self.feet)
@@ -286,9 +321,11 @@ class QuadrupedGaitFactory(_LocomotionFactory):
     w_state_bounds = 1e3
 
     def walking_problem(self, x0, step_length, step_height, dt,
-                        step_knots, support_knots) -> ShootingProblem:
+                        step_knots, support_knots,
+                        pseudo_impulse=True) -> ShootingProblem:
         """One walking cycle: 2×[double support + 2 footsteps]; footfall
-        order RH, RF, LH, LF."""
+        order RH, RF, LH, LF (gaits.py:379-401); true impulse switch knots
+        with ``pseudo_impulse=False``."""
         x0 = np.asarray(x0)
         com_ref, (lf, rf, lh, rh) = self._com_ref(x0[:self.model.nq])
         LF, RF, LH, RH = 0, 1, 2, 3
@@ -298,17 +335,17 @@ class QuadrupedGaitFactory(_LocomotionFactory):
         models = [self._make_node(dt, allfeet) for _ in range(support_knots)]
         models += self._footstep_models(com_ref, [rh], first * step_length,
                                         step_height, dt, step_knots,
-                                        [LF, RF, LH], [RH])
+                                        [LF, RF, LH], [RH], pseudo_impulse)
         models += self._footstep_models(com_ref, [rf], first * step_length,
                                         step_height, dt, step_knots,
-                                        [LF, LH, RH], [RF])
+                                        [LF, LH, RH], [RF], pseudo_impulse)
         models += [self._make_node(dt, allfeet) for _ in range(support_knots)]
         models += self._footstep_models(com_ref, [lh], step_length,
                                         step_height, dt, step_knots,
-                                        [LF, RF, RH], [LH])
+                                        [LF, RF, RH], [LH], pseudo_impulse)
         models += self._footstep_models(com_ref, [lf], step_length,
                                         step_height, dt, step_knots,
-                                        [RF, LH, RH], [LF])
+                                        [RF, LH, RH], [LF], pseudo_impulse)
         return self._problem(x0, models)
 
     def _pairs_problem(self, x0, step_length, step_height, dt, step_knots,
@@ -373,8 +410,8 @@ class BipedGaitFactory(_LocomotionFactory):
                         step_knots, support_knots,
                         pseudo_impulse=True) -> ShootingProblem:
         """Double support, right step, double support, left step
-        (gaits.py:485-504)."""
-        _pseudo_impulse_only(pseudo_impulse)
+        (gaits.py:483-504); true impulse switch knots with
+        ``pseudo_impulse=False``."""
         x0 = np.asarray(x0)
         com_ref, (rf, lf) = self._com_ref(x0[:self.model.nq])
         R, L = 0, 1
@@ -383,10 +420,12 @@ class BipedGaitFactory(_LocomotionFactory):
         both = (R, L)
         models = [self._make_node(dt, both) for _ in range(support_knots)]
         models += self._footstep_models(com_ref, [rf], first * step_length,
-                                        step_height, dt, step_knots, [L], [R])
+                                        step_height, dt, step_knots, [L], [R],
+                                        pseudo_impulse)
         models += [self._make_node(dt, both) for _ in range(support_knots)]
         models += self._footstep_models(com_ref, [lf], step_length,
-                                        step_height, dt, step_knots, [R], [L])
+                                        step_height, dt, step_knots, [R], [L],
+                                        pseudo_impulse)
         return self._problem(x0, models)
 
     def squat_problem(self, x0, height_change, num_knots, dt,
@@ -416,9 +455,9 @@ class BipedGaitFactory(_LocomotionFactory):
                           balance_knots, dt, lift=(0.0, -0.05, 0.05),
                           pseudo_impulse: bool = True) -> ShootingProblem:
         """Shift the CoM over the left foot, raise the right foot along
-        ``lift`` and bring it back, replant it with a pseudo-impulse knot,
-        shift the CoM back and hold the default pose (gaits.py:532-571)."""
-        _pseudo_impulse_only(pseudo_impulse)
+        ``lift`` and bring it back, replant it with a pseudo-impulse knot
+        (a true impulse knot with ``pseudo_impulse=False``), shift the CoM
+        back and hold the default pose (gaits.py:532-571)."""
         R, L = 0, 1
         x0 = np.asarray(x0)
         com_ref, (rf, lf) = self._com_ref(x0[:self.model.nq])
@@ -441,8 +480,11 @@ class BipedGaitFactory(_LocomotionFactory):
                 ft = rf + lift * (1 - (k - ph) / ph)
             models.append(self._make_node(dt, (L,), com_task=com_over_lf,
                                           foot_tasks={R: ft}))
-        models.append(self._make_node(0.0, both, foot_tasks={R: rf},
-                                      switch=True))
+        if pseudo_impulse:
+            models.append(self._make_node(0.0, both, foot_tasks={R: rf},
+                                          switch=True))
+        else:
+            models.append(self._make_impulse_node(both, {R: rf}))
         for k in range(shift_knots):
             models.append(self._make_node(dt, both, com_task=com_ref
                                           + np.array([0.0, com_y * (1 - k

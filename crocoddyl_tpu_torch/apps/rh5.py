@@ -8,7 +8,8 @@ is computed after the solve from the solution's trajectories: the node's
 dynamics at each knot for the contact wrenches, and
 ``algorithms.centroidal_momentum`` under ``torch.func.vmap`` along the
 states, whose forward difference gives the momentum rate of the ZMP.  A
-problem has one segment, as ``solve`` takes it.
+problem may have several segments (the true-impulse gaits): an impulse
+knot has no contact wrench of its own, and its duration is zero.
 """
 
 from __future__ import annotations
@@ -23,13 +24,6 @@ from ..dynamics import algorithms as algo
 from ..utils.struct import tree_map
 
 
-def _segment(problem):
-    if len(problem.segments) != 1:
-        raise ValueError(f"{len(problem.segments)} segments (one is "
-                         "supported)")
-    return problem.running
-
-
 def _np(a) -> np.ndarray:
     return a.detach().cpu().numpy().astype(np.float64)
 
@@ -37,21 +31,23 @@ def _np(a) -> np.ndarray:
 def calc_cops(problem, sol) -> List[dict]:
     """Per knot and active 6D contact, the centre of pressure in the sole
     frame, CoP = (−τ_y/f_z, τ_x/f_z, 0) (rh5.py:27-59): a list of dicts
-    {t, contact_idx, f (6,), cop (3,)}."""
-    seg = _segment(problem)
-    if seg.contacts is None or not seg.contacts.contacts:
-        return []
+    {t, contact_idx, f (6,), cop (3,)}, over every segment that has
+    contacts (an impulse segment has none)."""
     out = []
-    for t in range(problem.T):
-        m = tree_map(lambda l: l[t], seg)
-        _, cache = m._dynamics(sol.xs[t], sol.us[t])
-        for ci, c in enumerate(m.contacts.contacts):
-            if c.nc != 6 or float(c.active) == 0.0:
-                continue
-            f = _np(cache.forces[ci])            # local (lin, ang)
-            fz = f[2] if abs(f[2]) > 1e-9 else 1e-9
-            out.append(dict(t=t, contact_idx=ci, f=f,
-                            cop=np.array([-f[4] / fz, f[3] / fz, 0.0])))
+    for seg, (i, j) in zip(problem.segments, problem._seg_slices()):
+        if (getattr(seg, "contacts", None) is None
+                or not seg.contacts.contacts):
+            continue
+        for t in range(i, j):
+            m = tree_map(lambda l: l[t - i], seg)
+            _, cache = m._dynamics(sol.xs[t], sol.us[t])
+            for ci, c in enumerate(m.contacts.contacts):
+                if c.nc != 6 or float(c.active) == 0.0:
+                    continue
+                f = _np(cache.forces[ci])            # local (lin, ang)
+                fz = f[2] if abs(f[2]) > 1e-9 else 1e-9
+                out.append(dict(t=t, contact_idx=ci, f=f,
+                                cop=np.array([-f[4] / fz, f[3] / fz, 0.0])))
     return out
 
 
@@ -59,15 +55,17 @@ def calc_zmps(problem, sol, dts: Optional[np.ndarray] = None) -> np.ndarray:
     """Whole-body ZMP per knot from the gravito-inertial wrench
     (rh5.py:62-108): f_gi = m·g − dh_lin/dt, τ_gi = −dh_ang/dt at the CoM,
     ZMP = (−τ_gi,y/f_gi,z, τ_gi,x/f_gi,z, 0), with the momentum rate the
-    forward difference of h(q, v) along the trajectory (a dt=0 knot keeps
-    the previous rate).  Returns (T, 3)."""
-    seg = _segment(problem)
+    forward difference of h(q, v) along the trajectory (a dt=0 knot, and
+    an impulse knot, keeps the previous rate).  Returns (T, 3)."""
     m = problem.state.model
     nq = problem.state.nq
     h = _np(torch.func.vmap(
         lambda x: algo.centroidal_momentum(m, x[:nq], x[nq:]))(sol.xs))
     if dts is None:
-        dts = np.broadcast_to(_np(seg.dt).reshape(-1), (problem.T,))
+        dts = np.concatenate([
+            np.zeros(n) if getattr(seg, "dt", None) is None
+            else np.broadcast_to(_np(seg.dt).reshape(-1), (n,))
+            for seg, n in zip(problem.segments, problem.seg_lengths)])
     dts = np.asarray(dts, np.float64)
     mass = float(_np(m.mass).sum())
     g = _np(m.gravity)

@@ -1,10 +1,14 @@
-"""MPC horizon rotation and warm starting for one segment (port of
-crocoddyl_tpu/core/mpc.py: ``stack_nodes``, ``circular_append`` and
-``shift_warm_start``).
+"""MPC horizon rotation and warm starting (port of
+crocoddyl_tpu/core/mpc.py: ``stack_nodes``, ``circular_append``,
+``rotate_segmented`` and ``shift_warm_start``).
 
-The running horizon is one stacked model whose leaves carry a leading T
-axis, so a rotation is a ``torch.roll`` of every leaf on the problem's
-device: no host round trip.  A rotated problem is a new object whose
+The running horizon of a one-segment problem is one stacked model whose
+leaves carry a leading T axis, so its rotation is a ``torch.roll`` of
+every leaf on the problem's device: no host round trip.  A problem of
+several segments (the true-impulse gaits) is rotated by rebuilding its
+knot list and regrouping it into segments (``rotate_segmented``): a knot
+cannot move into a segment of another structure.  A rotated problem is a
+new object whose
 leaves are new tensors, never an edit of the old one: the kernel
 descriptor (``ops/cuda_kernels.descriptor``) and ``ShootingProblem.knots``
 are cached by object identity and would be read stale.
@@ -16,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..utils.struct import tree_leaves, tree_map
+from ..utils.struct import tree_flatten, tree_leaves, tree_map
 from .action import ActionModel
 from .problem import ShootingProblem
 
@@ -43,9 +47,8 @@ def circular_append(problem: ShootingProblem,
     One segment only: several segments raise a ``ValueError``."""
     if isinstance(problem.running, tuple) and len(problem.running) > 1:
         raise ValueError(
-            "circular_append rotates one segment; a problem of several "
-            "segments needs rotate_segmented(), which the port does not "
-            "have yet")
+            "circular_append rotates one segment; use rotate_segmented() "
+            "for a problem of several segments")
     running = (problem.running[0] if isinstance(problem.running, tuple)
                else problem.running)
 
@@ -64,6 +67,33 @@ def circular_append(problem: ShootingProblem,
     x0 = problem.x0 if new_x0 is None else torch.as_tensor(
         new_x0, dtype=problem.x0.dtype, device=problem.x0.device)
     return problem.replace(running=running, x0=x0)
+
+
+def rotate_segmented(problem: ShootingProblem, k: int = 1, new_models=None,
+                     new_x0: Optional[torch.Tensor] = None) -> ShootingProblem:
+    """Rotate the whole horizon of a problem of any number of segments by
+    ``k`` knots (mpc.py:82-112): the first k knots are dropped and k models
+    appended at the tail (``new_models``, default: the dropped knots, the
+    cyclic schedule), then the knot list is regrouped into consecutive
+    segments of one structure (type, static fields and leaf structure), so
+    a knot may cross a segment boundary."""
+    nodes = [n for seg in problem.segments for n in _unstack(seg)]
+    k = k % len(nodes)
+    nodes = nodes[k:] + list(nodes[:k] if new_models is None
+                             else new_models)
+    segments, keys = [], []
+    for n in nodes:
+        key = (type(n), tree_flatten(n)[1])
+        if keys and keys[-1] == key:
+            segments[-1].append(n)
+        else:
+            keys.append(key)
+            segments.append([n])
+    segments = tuple(stack_nodes(s) for s in segments)
+    x0 = problem.x0 if new_x0 is None else torch.as_tensor(
+        new_x0, dtype=problem.x0.dtype, device=problem.x0.device)
+    return problem.replace(
+        running=segments[0] if len(segments) == 1 else segments, x0=x0)
 
 
 def shift_warm_start(xs: torch.Tensor, us: torch.Tensor,

@@ -4,27 +4,35 @@ crocoddyl_tpu/core/solvers/fddp.py): ``SolverSettings``, ``Trace``,
 
 ``solve`` runs FDDP and DDP (``feasibility_driven=False``), Box-FDDP and
 Box-DDP (``box=True`` with control bounds), the parallel and the sequential
-line search, with or without the trace and an ``iter_callback``, on one
-segment.  Which passes run follows the problem's structure and the
-settings, as the JAX ``use_fscan`` does (fddp.py:557-561), never the device:
+line search, with or without the trace and an ``iter_callback``, the
+multiple-shooting trial rollout (``ms_chunk > 0``, FDDP only) and the
+associative-scan backward pass (``parallel_riccati=True``), on a problem of
+one segment or several (the true-impulse gaits).  Which passes run follows
+the problem's structure and the settings, as the JAX ``use_fscan`` does
+(fddp.py:557-561), never the device:
 
 - every linearization goes through ``ShootingProblem.calc_diff_full``,
-  which takes each stack by its structure: a problem whose nodes the node
-  kernel admits is one node-kernel launch over the T+1 nodes (kernel 1); a
-  running stack or terminal the kernel admits keeps kernel 1 when the
-  other one does not; every other stack (a generic ``RigidBodyNode``, an
+  which takes each group of same-structure segments and the terminal by
+  its structure: a one-segment problem whose nodes the node kernel admits
+  is one node-kernel launch over the T+1 nodes (kernel 1); any other block
+  the kernel admits is one kernel-1 launch over its knots; every other
+  block (a generic ``RigidBodyNode``, an ``ImpulseNode``, an
   ``ActionModel``) gives its own derivatives;
-- with ``fused_scans=True``, for a problem whose nodes the node kernel
-  admits, without box: every backward pass and ladder probe is the
-  single-problem Riccati pass (kernel 4,
-  ``ops/fused_scans.riccati_backward_fused``) and every line-search trial
-  one single-problem rollout (kernel 5,
+- ``parallel_riccati=True`` without box: every backward pass and ladder
+  probe is ``parallel_riccati.backward_pass_parallel`` (before kernel 4,
+  as in JAX);
+- with ``fused_scans=True``, for a one-segment problem whose nodes the
+  node kernel admits, without box: every backward pass and ladder probe is
+  the single-problem Riccati pass (kernel 4,
+  ``ops/fused_scans.riccati_backward_fused``) and, with ``ms_chunk == 0``,
+  every line-search trial one single-problem rollout (kernel 5,
   ``ops/fused_scans.trial_rollout_fused``);
-- otherwise (the default ``fused_scans=False``, box, or a node the kernel
-  does not admit): the generic backward pass ``_backward_pass`` (with a BoxQP per
-  node under box) and the generic trial rollout ``_forward_pass``
-  (controls clamped under box; the parallel line search's trials as lanes
-  of one pass).
+- otherwise (the default ``fused_scans=False``, box, several segments, or a
+  node the kernel does not admit): the generic backward pass
+  ``_backward_pass`` (with a BoxQP per node under box) and the generic
+  trial rollout, ``_forward_pass`` or ``_forward_pass_ms`` (controls
+  clamped under box; the parallel line search's trials as rows of one
+  pass).
 
 On CUDA tensors the kernels run on the card; the generic passes are plain
 PyTorch on whatever device the problem is on.  The JAX version is one
@@ -48,8 +56,9 @@ from ...ops import fused_scans as _fsc
 from ...ops.smallchol import cho_solve, chol
 from ...utils.struct import tree_leaves, tree_map
 from ..action import ActionModel
-from ..problem import terminal_calc
+from ..problem import node_calc, terminal_calc
 from . import boxqp
+from .parallel_riccati import backward_pass_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,9 +66,10 @@ class SolverSettings:
     """Static solver configuration; defaults mirror the JAX package
     (fddp.py:51-134).  ``fused_scans=True`` takes the single-problem
     kernels 4 and 5 where the problem admits them, as the JAX ``use_fscan``
-    does; ``parallel_riccati`` and ``ms_chunk`` (with its ``th_gaptol``)
-    select paths the port does not have yet and are refused by the solvers
-    when set.  ``scan_unroll`` is left out: it tunes XLA loops only."""
+    does; ``parallel_riccati=True`` the associative-scan backward pass;
+    ``ms_chunk > 0`` the multiple-shooting trial rollout, whose solves
+    converge on ``th_stop`` and the gaps below ``th_gaptol``.
+    ``scan_unroll`` is left out: it tunes XLA loops only."""
 
     maxiter: int = 100
     feasibility_driven: bool = True
@@ -180,24 +190,22 @@ def _bad(x) -> torch.Tensor:
 def _refusal(problem, settings: SolverSettings) -> Optional[str]:
     """Why ``solve`` does not take this problem and configuration, or
     None."""
-    if settings.ms_chunk:
-        return "ms_chunk > 0 (the multiple-shooting forward pass)"
-    if settings.parallel_riccati:
-        return "parallel_riccati=True (the associative-scan Riccati pass)"
-    if len(problem.segments) != 1:
-        return f"{len(problem.segments)} segments (one is supported)"
-    if (isinstance(problem.running, ActionModel)
-            and isinstance(problem.terminal, ActionModel)):
+    if settings.ms_chunk > 0 and not settings.feasibility_driven:
+        # fddp.py:491-496: plain DDP zeroes the gaps in its rollout and
+        # would never measure the chunk-boundary defects
+        return ("ms_chunk > 0 requires feasibility_driven=True "
+                "(multiple-shooting defects are FDDP gaps)")
+    if all(isinstance(m, ActionModel)
+           for m in (*problem.segments, problem.terminal)):
         return None
-    return ("a node that is not an ActionModel (a RigidBodyNode, or a model "
-            "with its own calc and derivatives)")
+    return ("a node that is not an ActionModel (a RigidBodyNode, an "
+            "ImpulseNode, or a model with its own calc and derivatives)")
 
 
 def supports(problem, settings: SolverSettings) -> bool:
-    """True iff ``solve`` covers this problem and configuration: no
-    multiple shooting, no parallel Riccati pass, one segment of
-    ``ActionModel``s (``RigidBodyNode`` included) and an ``ActionModel``
-    terminal."""
+    """True iff ``solve`` covers this problem and configuration: segments
+    of ``ActionModel``s (``RigidBodyNode`` and ``ImpulseNode`` included),
+    an ``ActionModel`` terminal, and no multiple shooting under DDP."""
     return _refusal(problem, settings) is None
 
 
@@ -291,9 +299,10 @@ def _backward_pass(derivs, dterm, fs, xreg, ureg, box_args=None,
 
 def _forward_pass(problem, xs, us, k, K, fs, alphas, u_lb=None, u_ub=None):
     """Trial rollouts at the step lengths ``alphas`` (fddp.py:310-355), the
-    trials as rows: each knot's nodes are evaluated for all trials at once
-    (``ShootingProblem.knot_calc``: one plain lane primal for a lane node,
-    the model's ``calc`` under vmap otherwise).  ``fs`` must already be zeroed
+    trials as rows, through every segment in turn: each knot's nodes are
+    evaluated for all trials at once (``ShootingProblem.knot_calc``: one
+    plain lane primal for a lane node, the model's ``calc`` under vmap
+    otherwise).  ``fs`` must already be zeroed
     for DDP; with bounds the controls are clamped (box-ddp.cpp:95-97).
     Returns (xs_try (A, T+1, nx), us_try (A, T, nu), cost (A,), failed
     (A,))."""
@@ -325,6 +334,77 @@ def _forward_pass(problem, xs, us, k, K, fs, alphas, u_lb=None, u_ub=None):
             failed)
 
 
+def _rows_calc(sub, xs, us, A):
+    """(xnext, cost) of the K knots of the stack ``sub`` at the rows of xs
+    (K·A, nx), us (K·A, nu), row r at knot r // A."""
+    if _fn.supports(sub) or A == 1:
+        return node_calc(sub, xs, us)
+    return node_calc(tree_map(lambda l: l.repeat_interleave(A, 0), sub), xs,
+                     us)
+
+
+def _forward_pass_ms(problem, xs, us, k, K, fs, alphas, ms_chunk, u_lb=None,
+                     u_ub=None):
+    """Multiple-shooting trial rollouts (fddp.py:358-457): each segment's
+    knots split into chunks of ``ms_chunk`` (the last one shorter), and all
+    chunks of a segment roll out at once, each from the candidate's
+    reconstruction of its incoming state ``integrate(xs[t0], fs[t0])`` (x0
+    at t0 = 0, the previous knot's xnext inside the horizon).  The chunks
+    and the trials are the rows of one evaluation per step (chunk-major), so
+    a segment takes ``ms_chunk`` steps instead of its length.  The returned
+    trials are those of ``_forward_pass``; the chunk-boundary mismatches
+    become the next iteration's gaps."""
+    diff, integrate = _state_ops(problem)
+    A, T = len(alphas), problem.T
+    al = torch.tensor(alphas, dtype=xs.dtype, device=xs.device)[:, None]
+    xs_try = xs.new_empty((A, T + 1, xs.shape[-1]))
+    us_try = us.new_empty((A, T, us.shape[-1]))
+    cost = xs.new_zeros(A)
+    failed = torch.zeros(A, dtype=torch.bool, device=xs.device)
+    x_last = None
+    for seg, (i, j) in zip(problem.segments, problem._seg_slices()):
+        L = j - i
+        c = min(ms_chunk, L)
+        n_c = L // c
+        pieces = [(i, i + n_c * c, n_c)]
+        if L > n_c * c:
+            pieces.append((i + n_c * c, j, 1))
+        seg_cost = xs.new_zeros(A)
+        for lo, hi, n in pieces:
+            clen = (hi - lo) // n
+            starts = torch.arange(lo, hi, clen, device=xs.device)
+            rep = torch.repeat_interleave
+            x = rep(integrate(xs[starts], fs[starts]), A, 0)
+            alr = al.repeat(n, 1)                   # row s·A + a: alphas[a]
+            c_rows = xs.new_zeros(n * A)
+            f_rows = torch.zeros(n * A, dtype=torch.bool, device=xs.device)
+            for s in range(clen):
+                ts = starts + s
+                sub = tree_map(lambda l: l[lo - i + s:hi - i:clen], seg)
+                x_try = integrate(x, (alr - 1.0) * rep(fs[ts], A, 0))
+                dx = diff(rep(xs[ts], A, 0), x_try)
+                u_try = (rep(us[ts], A, 0) - alr * rep(k[ts], A, 0)
+                         - (rep(K[ts], A, 0) @ dx[..., None])[..., 0])
+                if u_lb is not None:
+                    u_try = torch.clamp(u_try, rep(u_lb[ts], A, 0),
+                                        rep(u_ub[ts], A, 0))
+                x, cc = _rows_calc(sub, x_try, u_try, A)
+                c_rows = c_rows + cc
+                # raiseIfNaN per chunk on its running cost and the state
+                f_rows = (f_rows | ~(c_rows.abs() < 1e30)
+                          | ~(x.abs().amax(-1) < 1e30))
+                xs_try[:, ts] = x_try.view(n, A, -1).transpose(0, 1)
+                us_try[:, ts] = u_try.view(n, A, -1).transpose(0, 1)
+            seg_cost = seg_cost + c_rows.view(n, A).sum(0)
+            failed = failed | f_rows.view(n, A).any(0)
+            x_last = x.view(n, A, -1)[-1]
+        cost = cost + seg_cost
+    xT = integrate(x_last, (al - 1.0) * fs[-1])
+    cost = cost + terminal_calc(problem.terminal, xT)
+    xs_try[:, T] = xT
+    return xs_try, us_try, cost, failed | ~(cost.abs() < 1e30)
+
+
 def solve(problem, xs_init: Optional[torch.Tensor] = None,
           us_init: Optional[torch.Tensor] = None,
           settings: SolverSettings = SolverSettings(),
@@ -344,7 +424,7 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
     dev = resolve_device(device)
     dt = problem.x0.dtype
     problem = cast(problem, dev, dt)
-    seg, term = problem.running, problem.terminal
+    seg, term = problem.segments[0], problem.terminal
     T, nu = problem.T, problem.nu
     x0 = problem.x0
     fd = s.feasibility_driven
@@ -353,6 +433,10 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
     # them and there are no bounds (fddp.py:557-561, fused_scans.py:334-340)
     use_fscan = (s.fused_scans and _fsc.supports_problem(problem, s)
                  and problem.on_lanes)
+    # kernel 5 takes the trials only without multiple shooting
+    # (fddp.py:680-695); the associative-scan pass comes before kernel 4
+    fscan_trials = use_fscan and s.ms_chunk == 0
+    par_riccati = s.parallel_riccati and not s.box
 
     if s.box:
         if u_lb is None:
@@ -390,7 +474,11 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
         ureg follows xreg, as in the JAX ladder."""
         derivs, dterm, fs, cost = _calc_diff(problem, c["xs"], c["us"],
                                              c["feasible"])
-        if use_fscan:
+        if par_riccati:
+            def bp(xr, ur, probe=False):
+                out = backward_pass_parallel(derivs, dterm, fs, xr, ur)
+                return out[-1] if probe else out
+        elif use_fscan:
             def bp(xr, ur, probe=False):
                 out = _fsc.riccati_backward_fused(derivs, dterm, fs, xr, ur)
                 return out[-1] if probe else out
@@ -420,10 +508,15 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
     def trial_rollouts(c, fs_fwd, k, K, alphas_):
         """[(xs_try, us_try, cost_try, failed)] at each step length: kernel
         5 for the T running knots and the terminal node here, one launch a
-        trial, or the generic pass over all of them at once."""
-        if not use_fscan:
-            out = _forward_pass(problem, c["xs"], c["us"], k, K, fs_fwd,
-                                alphas_, *bounds)
+        trial, or the generic pass (multiple-shooting with ``ms_chunk``)
+        over all of them at once."""
+        if not fscan_trials:
+            if s.ms_chunk > 0:
+                out = _forward_pass_ms(problem, c["xs"], c["us"], k, K,
+                                       fs_fwd, alphas_, s.ms_chunk, *bounds)
+            else:
+                out = _forward_pass(problem, c["xs"], c["us"], k, K, fs_fwd,
+                                    alphas_, *bounds)
             return [tuple(o[i] for o in out) for i in range(len(alphas_))]
         out = []
         for alpha in alphas_:
@@ -469,7 +562,7 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
         are the last trial's (fddp.py:731-749)."""
         Vx, Vxx, Qu, k, K, _, _ = res
         fs_fwd = fs if fd else torch.zeros_like(fs)
-        if s.parallel_linesearch and not use_fscan:
+        if s.parallel_linesearch and not fscan_trials:
             trials = trial_rollouts(c, fs_fwd, k, K, alphas)
             judged = [judge(c, a, tr, fs, cost, Vxx, dg, dq)
                       for a, tr in zip(alphas, trials)]
@@ -508,8 +601,10 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
         feasible, was_feasible = c["feasible"], c["was_feasible"]
         if trial is not None:
             was_feasible = feasible
-            feasible = ((c["was_feasible"] or steplength == 1.0) if fd
-                        else True)
+            # a multiple-shooting step always leaves chunk-boundary
+            # defects: its candidate is never feasible (fddp.py:756-764)
+            feasible = ((c["was_feasible"] or steplength == 1.0)
+                        and s.ms_chunk == 0 if fd else True)
         # regularization schedule (fddp.py:771-779)
         inc = steplength <= s.th_stepinc
         if steplength > s.th_stepdec:
@@ -528,7 +623,12 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
                                feasible))
         if s.iter_callback is not None:
             s.iter_callback(c["iter"], cost_n, xs_n)
-        c["converged"] = was_feasible and bool(stop < s.th_stop)
+        if s.ms_chunk > 0:
+            # converged once the gaps contract too (fddp.py:807-812)
+            c["converged"] = (bool(stop < s.th_stop)
+                              and bool(fs.abs().max() < s.th_gaptol))
+        else:
+            c["converged"] = was_feasible and bool(stop < s.th_stop)
         c["iter"] += 1
         return c, (fs, res)
 

@@ -31,11 +31,13 @@ def _classes():
     from ..models.lqr import DiffLQRModel, LQRModel
     from ..models.multibody import (activations, actuations, contacts, costs,
                                     frames)
-    from ..models.multibody.nodes import CostStack, RigidBodyNode
+    from ..models.multibody.nodes import (CostStack, ImpulseNode,
+                                          RigidBodyNode)
     from ..models.unicycle import UnicycleModel
     out = {c.__name__: c for c in (ShootingProblem, RobotModel,
                                    StateMultibody, CostStack,
-                                   RigidBodyNode, StateVector, UnicycleModel,
+                                   RigidBodyNode, ImpulseNode, StateVector,
+                                   UnicycleModel,
                                    LQRModel, DiffLQRModel)}
     for mod in (activations, actuations, contacts, costs, frames):
         for name in dir(mod):

@@ -1,15 +1,18 @@
-"""Point and placement contacts with fixed-shape activity masks and the
-contact KKT solve (port of ``Contact3D``, ``Contact6D``, ``ContactSet``,
-``_contact_kkt_raw``,
-``solve_contact_kkt`` and ``pd_solve`` of
-crocoddyl_tpu/models/multibody/contacts.py).
+"""Point and placement contacts with fixed-shape activity masks, the
+contact KKT solve and the impulse KKT solve (port of ``Contact3D``,
+``Contact6D``, ``ContactSet``, ``_contact_kkt_raw``, ``solve_contact_kkt``
+and ``pd_solve`` of crocoddyl_tpu/models/multibody/contacts.py, and of the
+impulse solve of ``ImpulseNode._compute``, nodes.py:513-537).
 
 The contact stack has a static maximal set of contacts; per-node 0/1
 ``active`` masks zero an inactive contact's Jacobian rows, and the KKT
 solve gives it a unit diagonal so its multiplier is exactly zero.  The two
 solves differentiate implicitly: each is a ``torch.autograd.Function``
 whose ``jvp`` reuses the primal factorizations, as the JAX ``custom_jvp``
-rules do, and ``torch.func.jacfwd``/``vmap`` go through it.
+rules do, and ``torch.func.jacfwd``/``vmap`` go through it.  The impulse
+solve follows the same pattern: JAX differentiates its unrolled
+factorization in forward mode, which ``torch.linalg.cholesky_ex`` with the
+NaN fill of ``smallchol.chol`` does not compose with under ``vmap``.
 """
 
 from __future__ import annotations
@@ -48,6 +51,10 @@ class Contact3D(PyTreeNode):
         a0 = a0 + self.gains[1] * vv
         return J, a0
 
+    def calc_impulse(self, cache):
+        """The impulse Jacobian (3, nv) (contacts.py:59-61)."""
+        return cache.frame_jacobian_local(self.fid)[:3]
+
     def calc_tangent(self, cache, ft):
         """Closed-form d(−(Jc·a + a0))/dx (ndx, 3) from the frame tangents
         ``ft`` (algorithms.frame_tangents; contacts.py:63-73)."""
@@ -85,6 +92,10 @@ class Contact6D(PyTreeNode):
               + self.gains[1] * cache.frame_velocity(self.fid))
         return J, a0
 
+    def calc_impulse(self, cache):
+        """The impulse Jacobian (6, nv) (contacts.py:99-100)."""
+        return cache.frame_jacobian_local(self.fid)
+
     def calc_tangent(self, cache, ft):
         """Closed-form d(−(Jc·a + a0))/dx (ndx, 6): the log6 term chains
         through Jlog6 applied to the placement's local twist tangent
@@ -119,6 +130,13 @@ class ContactSet(PyTreeNode):
             a0s.append(a0 * c.active)
             masks.append(c.active.expand(c.nc))
         return torch.cat(Js), torch.cat(a0s), torch.cat(masks)
+
+    def calc_impulse(self, cache):
+        """Masked stacked (Jc (nc, nv), active_rows (nc,))
+        (contacts.py:144-150)."""
+        Js = [c.calc_impulse(cache) * c.active for c in self.contacts]
+        masks = [c.active.expand(c.nc) for c in self.contacts]
+        return torch.cat(Js), torch.cat(masks)
 
     def calc_tangents(self, kin, cache, a):
         """Closed-form d(r2)/dx (ndx, nc) of the stacked masked contact
@@ -213,3 +231,57 @@ class _PDSolve(torch.autograd.Function):
 def pd_solve(M, rhs):
     """M⁻¹·rhs for positive-definite M, differentiated implicitly."""
     return _PDSolve.apply(M, rhs)[0]
+
+
+def _impulse_kkt_raw(M, Jc, v, e, mask, damping):
+    """Schur-complement solve of the impulse KKT [M Jᵀ; J −damping·I]
+    [v⁺; −Λ] = [M·v; e·J·v] (nodes.py:525-535): S·Λ = −(1+e)·J·v with
+    S = J·M⁻¹·Jᵀ + damping·I (an inactive row a unit diagonal, so its Λ is
+    exactly 0), then v⁺ = v + M⁻¹·Jᵀ·Λ.  Returns (v⁺, Λ, chol(M),
+    chol(S), M⁻¹Jᵀ)."""
+    nc = Jc.shape[0]
+    eye = torch.eye(nc, dtype=M.dtype, device=M.device)
+    Lm = _sc.chol(M)
+    MinvJT = _sc.cho_solve(Lm, Jc.T)
+    S = Jc @ MinvJT + damping * eye
+    S = S * (mask[:, None] * mask[None, :]) + torch.diag_embed(1.0 - mask)
+    Ls = _sc.chol(S)
+    lam = _sc.cho_solve(Ls, -(1.0 + e) * (Jc @ v) * mask)
+    return v + MinvJT @ lam, lam, Lm, Ls, MinvJT
+
+
+class _ImpulseKKT(torch.autograd.Function):
+    """``_impulse_kkt_raw`` with its implicit JVP: at fixed (v⁺, Λ),
+    M·dv⁺ − Jᵀ·dΛ = r1 := M·dv + dM·(v − v⁺) + dJᵀ·Λ and
+    J·dv⁺ + damping·dΛ = r2 := −dJ·v⁺ − de·J·v − e·(dJ·v + J·dv), so
+    S·dΛ = r2 − J·M⁻¹·r1 through the primal factors (as ``_ContactKKT``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(M, Jc, v, e, mask, damping):
+        return _impulse_kkt_raw(M, Jc, v, e, mask, damping)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        M, Jc, v, e, mask, _ = inputs
+        vn, lam, Lm, Ls, MinvJT = output
+        ctx.save_for_forward(M, Jc, v, e, mask, vn, lam, Lm, Ls, MinvJT)
+
+    @staticmethod
+    def jvp(ctx, dM, dJc, dv, de, _dmask, _ddamping):
+        M, Jc, v, e, mask, vn, lam, Lm, Ls, MinvJT = ctx.saved_tensors
+        dM, dJc = _or_zeros(dM, M), _or_zeros(dJc, Jc)
+        dv, de = _or_zeros(dv, v), _or_zeros(de, e)
+        r1 = M @ dv + dM @ (v - vn) + dJc.T @ lam
+        r2 = -(dJc @ vn) - de * (Jc @ v) - e * (dJc @ v + Jc @ dv)
+        Minv_r1 = _sc.cho_solve(Lm, r1)
+        dlam = _sc.cho_solve(Ls, (r2 - Jc @ Minv_r1) * mask)
+        return (Minv_r1 + MinvJT @ dlam, dlam, torch.zeros_like(Lm),
+                torch.zeros_like(Ls), torch.zeros_like(MinvJT))
+
+
+def solve_impulse_kkt(M, Jc, v, e, mask, damping=0.0):
+    """(v⁺, Λ (nc,)) of the impulse KKT, differentiated implicitly through
+    the primal factorizations."""
+    return _ImpulseKKT.apply(M, Jc, v, e, mask, damping)[:2]

@@ -1,6 +1,6 @@
 """Residual-based costs (port of crocoddyl_tpu/models/multibody/costs.py:
 the seven costs of the node kernel, FramePlacement, FrameRotation, the CoP
-support cost and the centroidal momentum).
+support cost, the centroidal momentum and the three impulse costs).
 
 Each cost holds its references, an activation, a weight and a 0/1 active
 flag.  ``residual(st, cache, x, u)`` reads the node's kinematic sweep and
@@ -230,6 +230,24 @@ class CostCentroidalMomentum(Cost):
         return torch.cat([correct(dh_q, dcom_q), correct(dh_v, None)]).T
 
 
+class CostImpulseCoM(Cost):
+    """r = Jcom·(v⁺ − v⁻): the CoM velocity change at an impact
+    (costs.py:291-296); reads an ``ImpulseNode``'s post-impact velocity."""
+
+    def residual(self, st, cache, x, u):
+        return cache.kin.com_velocity(cache.vnext - cache.v)
+
+
+class CostContactImpulse(CostContactForce):
+    """r = Λ − Λref on an ``ImpulseNode`` (costs.py:299-303): the node's
+    forces are its impulse multipliers Λ."""
+
+
+class CostImpulseFrictionCone(CostContactFrictionCone):
+    """The friction cone on an ``ImpulseNode``'s impulse Λ
+    (costs.py:306-310)."""
+
+
 def cost_nr(cost: Cost, st) -> int:
     """Static residual size of a cost item on the state ``st``
     (costs.py:311-329)."""
@@ -237,7 +255,8 @@ def cost_nr(cost: Cost, st) -> int:
         return st.ndx
     if isinstance(cost, CostControl):
         return cost.uref.shape[-1]
-    if isinstance(cost, (CostCoM, CostFrameTranslation, CostFrameRotation)):
+    if isinstance(cost, (CostCoM, CostFrameTranslation, CostFrameRotation,
+                         CostImpulseCoM)):
         return 3
     if isinstance(cost, (CostFramePlacement, CostFrameVelocity,
                          CostCentroidalMomentum)):

@@ -1,7 +1,8 @@
-"""Rigid-body OCP node (port of crocoddyl_tpu/models/multibody/nodes.py:
-``NodeCache``, ``CostStack`` and ``RigidBodyNode``): {free | contact}
-forward dynamics + cost sum + semi-implicit Euler (or RK4) integration,
-with the dt=0 terminal / pseudo-impulse semantics.
+"""Rigid-body OCP nodes (port of crocoddyl_tpu/models/multibody/nodes.py:
+``NodeCache``, ``CostStack``, ``RigidBodyNode`` and ``ImpulseNode``):
+{free | contact} forward dynamics + cost sum + semi-implicit Euler (or RK4)
+integration, with the dt=0 terminal / pseudo-impulse semantics, and the
+discrete impact knot of the true-impulse gaits.
 
 ``RigidBodyNode`` is an ``ActionModel``: its ``calc``, ``calc_both``,
 ``calc_diff_terminal`` and ``calc_terminal`` compute what the JAX node's
@@ -32,8 +33,8 @@ from ...dynamics.states import StateMultibody
 from ...ops import smallchol as _sc
 from ...utils.struct import PyTreeNode, field
 from .actuations import Actuation
-from .contacts import (ContactSet, _contact_kkt_raw, pd_solve,
-                       solve_contact_kkt)
+from .contacts import (ContactSet, _contact_kkt_raw, _impulse_kkt_raw,
+                       pd_solve, solve_contact_kkt, solve_impulse_kkt)
 from .costs import cost_nr
 
 
@@ -414,3 +415,79 @@ class RigidBodyNode(ActionModel):
             Jc, _, _ = self.contacts.calc(NodeCache(algo.KinCache(m, q, v0)))
             return ls_solve(torch.cat([dtau_du, Jc.T], dim=1), b)[:self.nu]
         return ls_solve(dtau_du, b)
+
+
+class ImpulseNode(ActionModel):
+    """Discrete impact knot (nodes.py:492-573; impulse-fwddyn.hxx:57-137):
+    solves [M Jᵀ; J 0][v⁺; −Λ] = [M·v⁻; −e·J·v⁻] and gives xnext = (q, v⁺);
+    its nu controls are ignored (Fu = 0: the reference's nu = 0 in a
+    problem of uniform nu).  The impulse multipliers Λ are the node's
+    forces, read by the impulse costs as the contact costs read a contact
+    node's.  Its derivatives are ``jacfwd`` through the whole knot, as
+    JAX's are."""
+
+    state_: StateMultibody
+    impulses: ContactSet
+    costs: CostStack
+    nu_: int = field(static=True, default=0)
+    r_coeff: Optional[torch.Tensor] = None     # restitution (default 0)
+    kkt_damping: float = field(static=True, default=0.0)
+
+    @property
+    def state(self) -> StateMultibody:
+        return self.state_
+
+    @property
+    def nu(self) -> int:
+        return self.nu_
+
+    def _compute(self, x, implicit=False):
+        """(xnext, cost, R) of the impact (nodes.py:513-543).  With
+        ``implicit`` the impulse solve carries its JVP rule (for a caller
+        under ``jacfwd``)."""
+        st = self.state_
+        q, v = x[:st.nq], x[st.nq:]
+        kin = algo.KinCache(st.model, q, v)
+        cache = NodeCache(kin)
+        Jc, mask = self.impulses.calc_impulse(cache)
+        M = kin.mass_matrix()
+        e = (self.r_coeff if self.r_coeff is not None
+             else x.new_zeros(()))
+        solve = solve_impulse_kkt if implicit else _impulse_kkt_raw
+        vnext, lam = solve(M, Jc, v, e, mask, self.kkt_damping)[:2]
+        cache.forces = [lam[i:i + c.nc] for (i, _), c in
+                        zip(self.impulses.slices(), self.impulses.contacts)]
+        cache.vnext = vnext
+        R = self.costs.residuals(st, cache, x, x.new_zeros((self.nu_,)))
+        return torch.cat([q, vnext]), self.costs.value(st, R), R
+
+    def calc(self, x, u):
+        xnext, cost, _ = self._compute(x)
+        return xnext, cost
+
+    def calc_terminal(self, x):
+        return self._compute(x)[1]
+
+    def calc_diff(self, x, u) -> NodeDerivs:
+        return self.calc_both(x, u)[0]
+
+    def calc_both(self, x, u):
+        """(NodeDerivs, xnext, cost): Fx and the residual Jacobian Rx by
+        ``jacfwd`` through x ⊕ dx and xnext ⊖ xnext0, Gauss-Newton cost
+        terms, Fu = 0 and Ru = 0 (nodes.py:555-570)."""
+        st = self.state_
+        xnext0, cost0, _ = self._compute(x)
+
+        def g(dx):
+            xn, _, R = self._compute(st.integrate(x, dx), implicit=True)
+            return (st.diff(xnext0, xn), R), R
+
+        (Fx, Rx), R0 = jacfwd(g, has_aux=True)(x.new_zeros((st.ndx,)))
+        Ru = x.new_zeros((R0.shape[0], self.nu_))
+        Lx, Lu, Lxx, Lxu, Luu = self.costs.gauss_newton(st, R0, Rx, Ru)
+        return (NodeDerivs(Fx=Fx, Fu=x.new_zeros((st.ndx, self.nu_)),
+                           Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu, Luu=Luu),
+                xnext0, cost0)
+
+    def calc_diff_terminal(self, x) -> NodeDerivs:
+        return self.calc_diff(x, x.new_zeros((self.nu_,)))

@@ -16,6 +16,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import time
 import types
 
 import numpy as np
@@ -115,16 +116,21 @@ def _no_persistent_cache():
 _SOLVE_CHILD = """
 import ctypes, dataclasses, os, signal, sys
 # end with the test process that started it (PR_SET_PDEATHSIG), and, when
-# it runs ahead of the tests that need it, yield the CPU to the workers
+# it runs ahead of the tests that need it, yield some CPU to the workers
 ctypes.CDLL(None).prctl(1, int(signal.SIGKILL))
 if os.getppid() != int(sys.argv[3]):
     sys.exit(1)
-if sys.argv[4] == "nice":
-    os.nice(10)
+if int(sys.argv[4]):
+    os.nice(int(sys.argv[4]))
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+# a persistent compilation cache of this session's children alone
+# (``_run_child``): a child is a fresh process that loads a few programs,
+# not a long worker
+jax.config.update("jax_compilation_cache_dir", os.environ["PARITY_JAX_CACHE"])
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import crocoddyl_tpu as ct
 import crocoddyl_tpu_torch as ctt
 from crocoddyl_tpu.core.solvers import fddp_batch
@@ -162,6 +168,42 @@ np.savez(path, **leaves)
 # entry point: one child process computes all of an entry's
 SOLVE_JOBS = {"solve_batch": (1,), "solve": (1, 20)}
 
+# Every JAX reference of the port's tests (``start_references`` jobs: each
+# module's ``JOBS``), longest first: the session's first worker computes
+# them and SOLVE_JOBS from its start (``_prefetch``)
+_R = "tests.test_torch_"
+REFERENCE_JOBS = (
+    f"{_R}segments:jax_reference:solve",
+    f"{_R}segments:jax_reference:walk",
+    f"{_R}model_zoo:jax_reference:cop",
+    f"{_R}model_zoo:jax_reference:rh5",
+    f"{_R}model_zoo:jax_reference:taichi",
+    f"{_R}segments:jax_reference:impulse",
+    f"{_R}model_zoo:jax_reference:biped",
+    f"{_R}generic_node:jax_reference:contact_both",
+    f"{_R}generic_node:jax_reference:contact_term",
+    f"{_R}oracles:jax_reference:solvers",
+    f"{_R}oracles:jax_reference:numdiff",
+    f"{_R}model_zoo:jax_reference:quadrotor",
+    f"{_R}model_zoo:jax_reference:quadrotor_ubound",
+    f"{_R}generic_node:jax_reference:arm",
+    f"{_R}generic_node:jax_reference:rk4",
+    f"{_R}generic_node:jax_algorithms_reference:quadruped",
+    f"{_R}generic_node:jax_algorithms_reference:arm7",
+    f"{_R}generic_node:jax_reference:solve",
+    f"{_R}generic_node:jax_reference:double_pendulum",
+    f"{_R}generic_node:jax_algorithms_reference:double_pendulum")
+# children the prefetch runs at once, and their niceness: beside the six
+# test workers of the tier-1 run on eight cores
+PREFETCH_SLOTS = 3
+PREFETCH_NICE = 5
+# how long a child may run, and how long a test waits for a reference
+# another process is computing: a holder ends its child at CHILD_LIMIT and
+# lets go of the lock, so only a holder stuck past that fails its waiters'
+# tests, and a stuck reference fails its tests, not the session
+CHILD_LIMIT = 900
+WAIT_LIMIT = CHILD_LIMIT + 60
+
 
 def _shared_dir():
     """Under pytest-xdist, a directory that every worker of the session
@@ -188,20 +230,33 @@ def solve_cache(tmp_path_factory):
     return str(path)
 
 
-def _run_child(script, args, path, nice, timeout=1200):
+def _run_child(script, args, path, nice, timeout=CHILD_LIMIT):
     """Run ``script`` in a fresh Python process with ``args`` and a
-    temporary output path, then move its output to ``path`` (niced with
-    ``nice``); its stderr on failure, else None."""
+    temporary output path, then move its output to ``path`` (niced by
+    PREFETCH_NICE with ``nice``); its stderr on failure, else None."""
     tmp = f"{path}.{os.getpid()}.part.npz"
     env = {k: v for k, v in os.environ.items()
            if k != "PYTEST_XDIST_TESTRUNUID"}  # the child prefetches nothing
-    # one XLA:CPU thread: the child runs beside the test workers
+    # one XLA:CPU thread: the child runs beside the test workers; and no
+    # LLVM optimization: a reference is a few small programs run once, so
+    # their compile is most of a child's work (0.6-0.7 of its CPU seconds
+    # at -O0 on the segmented walk's and the solve's references, whose
+    # numbers move by rounding only)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
-                        + " --xla_cpu_multi_thread_eigen=false").strip()
-    res = subprocess.run(
-        [sys.executable, "-c", script, *args, tmp, str(os.getpid()),
-         "nice" if nice else "normal"], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=timeout)
+                        + " --xla_cpu_multi_thread_eigen=false"
+                        + " --xla_backend_optimization_level=0").strip()
+    # the children's compilation cache, beside their outputs in the
+    # session's own directory: empty when the session starts, and shared
+    # with no other session (tests/conftest.py's cache is a fixed path)
+    env["PARITY_JAX_CACHE"] = os.path.join(os.path.dirname(path),
+                                           "jax_cache")
+    try:
+        res = subprocess.run(
+            [sys.executable, "-c", script, *args, tmp, str(os.getpid()),
+             str(PREFETCH_NICE if nice else 0)], cwd=REPO, env=env,
+            capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return f"no result after {timeout} s"
     if res.returncode != 0:
         return res.stderr[-4000:] or f"exit code {res.returncode}"
     os.replace(tmp, path)
@@ -222,40 +277,87 @@ def _replacement_worker():
             and int(worker[2:]) >= int(count))
 
 
-def _prefetch(cache_dir):
-    """Take the lock of every entry of SOLVE_JOBS that no worker has taken
-    and compute those pairs one after the other, niced, in a thread of this
-    process, releasing each lock as its pair is written: the children run
-    beside the session's other tests from its start.  A child dies with its
-    worker, and a worker started in place of a crashed one prefetches
-    nothing: it runs the crashed worker's queue alone while the others shut
-    down, and a pair left undone is computed by the first worker that asks
-    (``solve_pair``)."""
-    if _replacement_worker():
-        return
-    held = []
-    for entry in SOLVE_JOBS:
-        path = os.path.join(cache_dir, f"{entry}.npz")
-        lock = open(path + ".lock", "w")
+def _try_lock(path):
+    """The open, exclusively locked ``path + ".lock"`` if no process holds
+    it and ``path`` is not written yet; else None."""
+    lock = open(path + ".lock", "w")
+    try:
+        fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+    except OSError:
+        lock.close()
+        return None
+    if os.path.exists(path):
+        lock.close()
+        return None
+    return lock
+
+
+def _wait_lock(path, what):
+    """The open ``path + ".lock"``, locked exclusively once its holder (the
+    process computing ``what``) releases it; a TimeoutError after
+    WAIT_LIMIT seconds, so that a stuck reference fails the tests that need
+    it, not the session."""
+    lock = open(path + ".lock", "w")
+    deadline = time.monotonic() + WAIT_LIMIT
+    while True:
         try:
             fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            return lock
         except OSError:
-            lock.close()
-            continue
-        if os.path.exists(path):
-            lock.close()
-            continue
-        held.append((entry, path, lock))
+            if time.monotonic() > deadline:
+                lock.close()
+                raise TimeoutError(f"{what}: not computed after waiting "
+                                   f"{WAIT_LIMIT} s for its holder")
+            time.sleep(0.5)
+
+
+def _prefetch(cache_dir):
+    """In the session's first worker to import this module (the holder of
+    ``prefetch.lock`` for the life of its process), compute every JAX
+    reference of the port's tests, SOLVE_JOBS and then REFERENCE_JOBS, in
+    PREFETCH_SLOTS threads, each child niced by PREFETCH_NICE, from the
+    session's start: the references are ready when the port's tests, which
+    come late in the session, need them, and no worker waits for a child
+    started late.  A job another process has taken (its lock) or written
+    is skipped; each lock is released as its file is written.  A child
+    dies with its worker; a worker started in place of a crashed one
+    prefetches nothing (it runs the crashed worker's queue alone while the
+    others shut down), and a reference left undone is computed by the
+    first test that asks (``solve_pair``, ``reference``)."""
+    if _replacement_worker():
+        return
+    leader = open(os.path.join(cache_dir, "prefetch.lock"), "w")
+    try:
+        fcntl.flock(leader, fcntl.LOCK_EX | fcntl.LOCK_NB)
+    except OSError:
+        leader.close()
+        return
+    _PREFETCH.append(leader)        # held until this process ends
+    jobs = [(_SOLVE_CHILD, [e], os.path.join(cache_dir, f"{e}.npz"))
+            for e in SOLVE_JOBS]
+    jobs += [(_REF_CHILD, j.split(":"), _ref_path(j, cache_dir))
+             for j in REFERENCE_JOBS]
+    pending = threading.Lock()
 
     def run():
-        for entry, path, lock in held:
+        while True:
+            with pending:
+                if not jobs:
+                    return
+                script, args, path = jobs.pop(0)
+                lock = _try_lock(path)
+            if lock is None:
+                continue
             try:
-                _compute(entry, path, nice=True)
+                _run_child(script, args, path, nice=True)
             finally:
                 lock.close()
-    if held:
+    for i in range(PREFETCH_SLOTS):
         threading.Thread(target=run, daemon=True,
-                         name="torch solve pairs").start()
+                         name=f"torch references {i}").start()
+
+
+_PREFETCH = []
 
 
 @functools.lru_cache(maxsize=None)
@@ -270,14 +372,14 @@ def solve_pair(entry, maxiter, cache_dir):
     programs late in long test workers (tests/run_suite.sh), and the port's
     plain CPU solve is the longest torch work of the suite.  The solutions
     go to ``cache_dir`` (the ``solve_cache`` fixture) under a file lock:
-    under pytest-xdist the pairs were started when this module was first
-    imported (``_prefetch``), so a worker waits at most for the rest of
-    them (a lock is released when its holder dies, and its child dies with
-    it); a pair that is not there is computed by the first worker that
-    asks, at normal priority, since a test waits for it."""
+    under pytest-xdist the pairs were started when the session began
+    (``_prefetch``), so a worker waits at most for the rest of them (a lock
+    is released when its holder dies, and its child dies with it; a wait
+    longer than WAIT_LIMIT fails the test); a pair that is not there is
+    computed by the first worker that asks, at normal priority, since a
+    test waits for it."""
     path = os.path.join(cache_dir, f"{entry}.npz")
-    with open(path + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with _wait_lock(path, entry):
         if not os.path.exists(path):
             err = _compute(entry, path, nice=False)
             if err is not None:
@@ -286,10 +388,6 @@ def solve_pair(entry, maxiter, cache_dir):
         return tuple(types.SimpleNamespace(**{
             k.split(".", 1)[1]: z[k] for k in z.files
             if k.startswith(f"{tag}{maxiter}.")}) for tag in ("ref", "out"))
-
-
-if _shared_dir():
-    _prefetch(_shared_dir())
 
 
 # ---------------------------------------------------------------------------
@@ -302,18 +400,23 @@ ctypes.CDLL(None).prctl(1, int(signal.SIGKILL))
 module, name, arg, path, ppid, nice = sys.argv[1:7]
 if os.getppid() != int(ppid):
     sys.exit(1)
-if nice == "nice":
-    os.nice(10)
+if int(nice):
+    os.nice(int(nice))
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+# a persistent compilation cache of this session's children alone
+# (``_run_child``): a child is a fresh process that loads a few programs,
+# not a long worker
+jax.config.update("jax_compilation_cache_dir", os.environ["PARITY_JAX_CACHE"])
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 out = getattr(importlib.import_module(module), name)(arg)
 np.savez(path, **out)
 """
 
 # children of ``start_references`` running at once in one process
-_REF_SLOTS = threading.BoundedSemaphore(9)
+_REF_SLOTS = threading.BoundedSemaphore(PREFETCH_SLOTS)
 
 
 def _ref_path(job, cache_dir):
@@ -324,7 +427,9 @@ def start_references(jobs, cache_dir):
     """Compute the JAX references ``jobs`` in child processes, started from
     threads of this process, so that they run beside the port's own
     computations; a job another process has taken (its file lock) or
-    finished is skipped.  At most 9 children run at once, niced.  A job is
+    finished is skipped (under pytest-xdist, ``_prefetch`` has taken every
+    job of REFERENCE_JOBS at the session's start).  At most
+    PREFETCH_SLOTS children run at once, niced.  A job is
     ``"module:function:arg"``: the child calls ``module.function(arg)`` and
     saves the dict of numpy arrays it returns.  Read a result with
     ``reference``."""
@@ -336,32 +441,29 @@ def start_references(jobs, cache_dir):
             lock.close()
     for job in jobs:
         path = _ref_path(job, cache_dir)
-        lock = open(path + ".lock", "w")
-        try:
-            fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
-        except OSError:
-            lock.close()
-            continue
-        if os.path.exists(path):
-            lock.close()
-            continue
-        threading.Thread(target=run, args=(job, path, lock), daemon=True,
-                         name=f"reference {job}").start()
+        lock = _try_lock(path)
+        if lock is not None:
+            threading.Thread(target=run, args=(job, path, lock),
+                             daemon=True, name=f"reference {job}").start()
 
 
 def reference(job, cache_dir):
     """The arrays of the JAX reference ``job`` (see ``start_references``):
-    waits for the process computing it, or computes it at normal priority
-    if no one did (its holder died)."""
+    waits for the process computing it (a TimeoutError after WAIT_LIMIT
+    seconds), or computes it at normal priority if no one did (its holder
+    died)."""
     path = _ref_path(job, cache_dir)
-    with open(path + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with _wait_lock(path, job):
         if not os.path.exists(path):
             err = _run_child(_REF_CHILD, job.split(":"), path, nice=False)
             if err is not None:
                 raise RuntimeError(f"{job} failed:\n{err}")
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+if _shared_dir():
+    _prefetch(_shared_dir())
 
 
 def describe(obj, path=""):

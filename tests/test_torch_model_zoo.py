@@ -462,18 +462,37 @@ def test_problem_from_numpy_round_trip(name):
 
 @pytest.mark.parametrize("method", ("walking", "balancing"))
 def test_pseudo_impulse_false_raises(method):
-    """The true impulse switch knot is not ported: asking for it raises,
-    naming ``ImpulseNode``, and nothing is built in its place."""
+    """The true impulse switch knot: with ``pseudo_impulse=False`` both
+    factories build JAX's segmented problem (rigid-body and ImpulseNode
+    segments of the same lengths, leaves within 1e-12, an ImpulseNode
+    where the pseudo-impulse problem has its dt=0 switch knot)."""
+    from crocoddyl_tpu.apps.gaits import BipedGaitFactory as JFactory
+    from crocoddyl_tpu.dynamics import robots as jr
     from crocoddyl_tpu_torch.apps.gaits import BipedGaitFactory
     from crocoddyl_tpu_torch.dynamics import robots
     m = robots.biped()
     q0 = robots.biped_standing_q(m)
     fac = BipedGaitFactory(m, SOLES, default_q=q0)
     x0 = torch.cat([q0, torch.zeros(m.nv, dtype=torch.float64)])
-    args = ((x0, 0.6, 0.1, 0.03, 3, 1) if method == "walking"
-            else (x0, 1, 2, 4, 0.03))
-    with pytest.raises(ValueError, match="ImpulseNode"):
-        getattr(fac, f"{method}_problem")(*args, pseudo_impulse=False)
+    args = ((0.6, 0.1, 0.03, 3, 1) if method == "walking"
+            else (1, 2, 4, 0.03))
+    tp = getattr(fac, f"{method}_problem")(x0, *args, pseudo_impulse=False)
+    jm = jr.biped()
+    jq0 = jr.biped_standing_q(jm)
+    jp = getattr(JFactory(jm, SOLES, default_q=np.asarray(jq0)),
+                 f"{method}_problem")(jnp.concatenate([jq0,
+                                                       jnp.zeros(jm.nv)]),
+                                      *args, pseudo_impulse=False)
+    kinds = [type(s).__name__ for s in tp.segments]
+    assert kinds == [type(s).__name__ for s in jp.segments]
+    assert "ImpulseNode" in kinds and tp.seg_lengths == jp.seg_lengths
+    _assert_leaves_equal(leaves_of(jp), _torch_leaves(tp))
+    pseudo = getattr(BipedGaitFactory(m, SOLES, default_q=q0),
+                     f"{method}_problem")(x0, *args)
+    switch = (pseudo.running.dt == 0).nonzero()[:, 0].tolist()
+    starts = [i for (i, _), k in zip(tp._seg_slices(), kinds)
+              if k == "ImpulseNode"]
+    assert pseudo.T == tp.T and switch == starts
 
 
 # ---------------------------------------------------------------------------
@@ -767,7 +786,7 @@ def test_rh5_analysis_matches_jax(what, _references, tmp_path):
     """``calc_cops``, ``calc_zmps`` and ``log_solution_csv`` of the port and
     of JAX on one trajectory of the CoP walk (the perturbed points of
     ``_problem_points``: moving, both feet loaded on the support knots);
-    several segments are refused."""
+    the problem cut in two segments gives the same CoPs."""
     from crocoddyl_tpu_torch.apps import rh5
     ref = reference(JOBS["rh5"], _references)
     prob = _torch_problem("rh5")
@@ -788,9 +807,14 @@ def test_rh5_analysis_matches_jax(what, _references, tmp_path):
         want = min(0.0, float((ref["cops.f"] @ A.T).min()))
         assert abs(chip_smoke.cop_in_support(prob, sol) - want) \
             < TOL_UNIT * np.abs(ref["cops.f"]).max()
-        with pytest.raises(ValueError, match="segments"):
-            rh5.calc_cops(prob.replace(running=(prob.running,
-                                                prob.running)), sol)
+        # several segments: the same records as the one segment they cut
+        from crocoddyl_tpu_torch.utils.struct import tree_map
+        cut = prob.replace(running=(
+            tree_map(lambda l: l[:5], prob.running),
+            tree_map(lambda l: l[5:], prob.running)))
+        for a, b in zip(cops, rh5.calc_cops(cut, sol), strict=True):
+            assert (a["t"], a["contact_idx"]) == (b["t"], b["contact_idx"])
+            np.testing.assert_array_equal(a["cop"], b["cop"])
     elif what == "zmps":
         zmps = rh5.calc_zmps(prob, sol)
         assert zmps.shape == (prob.T, 3)

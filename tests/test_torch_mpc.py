@@ -11,9 +11,11 @@ receding-horizon loop, and the solvers' settings gates, float64 on CPU:
 - the unicycle receding-horizon loop of tests/test_mpc.py:128-159 (8
   ticks, ``maxiter=3``) against JAX's: the plant's x0 and the cost of every
   tick within 1e-9 relative;
-- the gates: ``solve_batch`` refuses ``iter_callback``, both solvers refuse
-  ``parallel_riccati=True`` (which passes ``fused_scans`` selects on the
-  walk: tests/test_torch_solver_surface.py::test_walk_dispatch).
+- the gates: ``solve_batch`` refuses ``iter_callback`` and
+  ``parallel_riccati=True``; ``solve`` takes the latter, with the
+  associative-scan pass in place of kernel 4 (which passes
+  ``fused_scans`` selects on the walk:
+  tests/test_torch_solver_surface.py::test_walk_dispatch).
 """
 
 import numpy as np
@@ -192,11 +194,14 @@ def test_unicycle_receding_horizon_matches_jax():
                                   "batch_parallel_riccati",
                                   "solve_parallel_riccati"])
 def test_solver_gates_refuse(case):
-    """What the JAX gates refuse (fddp_batch.py:42-50) and what the port
-    does not have yet (the associative-scan Riccati pass) raise a
-    ValueError."""
+    """What the JAX gates refuse (fddp_batch.py:42-50) raises a ValueError;
+    ``solve`` takes ``parallel_riccati=True``, which JAX's ``solve`` takes:
+    with ``fused_scans=True`` on the walk its backward passes are the
+    associative scan, not kernel 4, and its trials kernel 5, with the
+    decisions of the kernel-4 solve (cost rtol 1e-9)."""
     import crocoddyl_tpu_torch as ctt
     from crocoddyl_tpu_torch.core.solvers import fddp, fddp_batch
+    from crocoddyl_tpu_torch.ops import fused_scans
     prob = torch_walk()
     ok = ctt.SolverSettings(maxiter=1, fused_scans=True,
                             parallel_riccati=False, th_gaptol=1e-7, **SEQ)
@@ -205,8 +210,17 @@ def test_solver_gates_refuse(case):
                         if case == "batch_iter_callback"
                         else {"parallel_riccati": True}))
     x0s = prob.x0[None].expand(2, -1)
-    with pytest.raises(ValueError, match="unsupported"):
-        if case.startswith("batch"):
+    if case.startswith("batch"):
+        with pytest.raises(ValueError, match="unsupported"):
             ctt.solve_batch(prob, x0s, settings=bad, device="cpu")
-        else:
-            ctt.solve(prob, settings=bad, device="cpu")
+        return
+    assert fddp.supports(prob, bad)
+    ric = fused_scans.riccati_backward_fused_plain
+    ro = fused_scans.trial_rollout_fused_plain
+    calls = (ric.calls, ro.calls)
+    got = ctt.solve(prob, settings=bad, device="cpu")
+    assert ric.calls == calls[0] and ro.calls > calls[1]
+    ref = ctt.solve(prob, settings=ok, device="cpu")
+    for f in ("iter", "steplength", "is_feasible", "xreg"):
+        assert bool(getattr(got, f) == getattr(ref, f)), f
+    np.testing.assert_allclose(float(got.cost), float(ref.cost), rtol=1e-9)

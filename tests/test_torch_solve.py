@@ -13,8 +13,8 @@ package, float64 on CPU, on the reduced ANYmal walk.
   quasi-static warm start, both exits: identical decisions, cost rtol 1e-8, us within 1e-6,
   the direction fields and xs within 1e-8 of their max-abs (the gaps fs
   within 1e-8 of the states' max-abs, see ``_same_solution``);
-- the gate (what ``solve`` still refuses) and the device rule of the
-  entry points.
+- the gate (what ``solve`` refuses, and the multiple-shooting rollout and
+  two segments that it takes) and the device rule of the entry points.
 
 Both exits' JAX and port solves run once a session, together, in one
 fresh process (``solve_pair``).
@@ -142,25 +142,58 @@ def test_solve_multi_iteration_matches_jax(solve_cache):  # noqa: F811
 @pytest.mark.parametrize("case", ["ms_chunk", "ms_chunk_ddp", "two_segments",
                                   "running_rk4", "terminal_rk4",
                                   "box_without_bounds"])
-def test_solve_gate_refuses(case):
-    """What ``solve`` still refuses raises a ValueError that says why: the
-    multiple-shooting forward pass, several segments, a box solve without
-    bounds.  An RK4 node, which the node kernel does not admit, is a
-    generic ``RigidBodyNode`` that ``solve`` takes; ``solve_batch`` (and
-    kernels 4 and 5) refuse it."""
+def test_solve_gate_refuses(case, monkeypatch):
+    """What ``solve`` refuses raises a ValueError that says why, and only
+    that: multiple shooting under DDP (fddp.py:491-496) and a box solve
+    without bounds.  The multiple-shooting FDDP rollout (``ms_chunk``) and
+    a problem of two segments are taken: the first iteration's trials go
+    through ``_forward_pass_ms`` with the sequential solve's direction, and
+    two segments of one structure solve as the one segment of their
+    concatenated knots (same decisions, cost rtol 1e-8).  An RK4 node,
+    which the node kernel does not admit, is a generic ``RigidBodyNode``
+    that ``solve`` takes; ``solve_batch`` (and kernels 4 and 5) refuse
+    it."""
     from crocoddyl_tpu_torch import (SolverSettings, box_fddp_settings,
                                      solve, solve_batch)
     from crocoddyl_tpu_torch.core.solvers import fddp
     from crocoddyl_tpu_torch.ops import fused_scans
+    from crocoddyl_tpu_torch.utils.struct import tree_map
     prob = to_port(jax_walk()[0])
     settings = SolverSettings(maxiter=1, **SEQ)
     assert fddp.supports(prob, settings)
     match = "unsupported"
-    if case.startswith("ms_chunk"):
-        settings = settings.replace(ms_chunk=4, feasibility_driven=case
-                                    == "ms_chunk")
-    elif case == "two_segments":
-        prob = prob.replace(running=(prob.running, prob.running))
+    if case == "ms_chunk":
+        ms = settings.replace(ms_chunk=4)
+        assert fddp.supports(prob, ms)
+        passes = []
+        for name in ("_forward_pass", "_forward_pass_ms"):
+            fn = getattr(fddp, name)
+            monkeypatch.setattr(fddp, name, lambda *a, fn=fn, name=name:
+                                passes.append(name) or fn(*a))
+        got = solve(prob, settings=ms, device="cpu")
+        assert set(passes) == {"_forward_pass_ms"}
+        ref = solve(prob, settings=settings, device="cpu")
+        for f in ("k", "K", "Vx", "fs"):
+            torch.testing.assert_close(getattr(got, f), getattr(ref, f))
+        assert torch.isfinite(got.cost) and not bool(got.is_feasible)
+        return
+    if case == "two_segments":
+        two = prob.replace(running=(prob.running, prob.running))
+        one = prob.replace(running=tree_map(lambda l: torch.cat([l, l]),
+                                            prob.running))
+        assert fddp.supports(two, settings) and two.T == one.T
+        assert two.seg_lengths == (prob.T, prob.T) and not two.on_lanes
+        got = solve(two, settings=settings, device="cpu")
+        ref = solve(one, settings=settings, device="cpu")
+        for f in ("iter", "steplength", "is_feasible", "xreg"):
+            assert bool(getattr(got, f) == getattr(ref, f)), f
+        # the decisions' bar (tests/test_fddp_batch.py:51-58): the blocks'
+        # node counts differ, and so does their rounding
+        np.testing.assert_allclose(float(got.cost), float(ref.cost),
+                                   rtol=1e-8)
+        return
+    if case == "ms_chunk_ddp":
+        settings = settings.replace(ms_chunk=4, feasibility_driven=False)
     elif case.endswith("rk4"):
         stack = case.split("_")[0]
         prob = prob.replace(**{stack: getattr(prob, stack).replace(
