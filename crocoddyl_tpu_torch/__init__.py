@@ -24,31 +24,43 @@ passes otherwise, with a plain PyTorch version of each kernel for CPU
 tensors.  Two oracles check it: the dense KKT step
 (``core/solvers/kkt``) and finite differences (``utils/numdiff``).  Both
 entry points run on the CUDA device unless the caller passes
-``device="cpu"``.  The package imports no JAX.
+``device="cpu"``.  ``parallel`` shards a batch of problems over GPUs, one
+process per card (``torch.distributed``); ``io.display`` renders
+trajectories, ``utils.aot`` records models with ``torch.export``, and
+``utils.callbacks`` prints, saves and plots solutions.  The package imports
+no JAX.
 """
 
 from .core.action import (ActionModel, NodeDerivs, replicate_model,
                           stack_models)
-from .core.manifolds import StateVector
+from .core.manifolds import StateBase, StateVector, state_vector
 from .core.mpc import circular_append, rotate_segmented, shift_warm_start
 from .core.problem import ShootingProblem
 from .core.solvers.fddp import (Solution, SolverSettings, Trace,
                                 box_ddp_settings, box_fddp_settings,
                                 ddp_settings, fddp_settings, polish, solve)
+from .core.solvers import boxqp, kkt
 from .core.solvers.fddp_batch import solve_batch
 from .dynamics import robots
 from .dynamics.robots import (arm7, biped, cartpole, double_pendulum,
                               humanoid, pendulum, quadrotor)
 from .models.multibody.costs import CostFramePlacement, CostFrameRotation
 from .models.multibody.nodes import CostStack, ImpulseNode, RigidBodyNode
+from . import parallel
+from .utils.casting import cast_floats
+from .utils.callbacks import (SolverLog, format_trace, load_solution,
+                              plot_convergence, plot_oc_solution,
+                              print_trace, save_solution)
 
 __all__ = ["ActionModel", "CostFramePlacement", "CostFrameRotation",
            "CostStack", "ImpulseNode", "NodeDerivs", "RigidBodyNode",
-           "ShootingProblem",
-           "Solution", "SolverSettings", "StateVector", "Trace", "arm7",
-           "biped", "box_ddp_settings", "box_fddp_settings", "cartpole",
-           "circular_append", "ddp_settings", "double_pendulum",
-           "fddp_settings", "humanoid", "pendulum", "polish", "quadrotor",
-           "replicate_model", "robots", "rotate_segmented",
-           "shift_warm_start", "solve",
-           "solve_batch", "stack_models"]
+           "ShootingProblem", "Solution", "SolverLog", "SolverSettings",
+           "StateBase", "StateVector", "Trace", "arm7", "biped",
+           "box_ddp_settings", "box_fddp_settings", "boxqp", "cartpole",
+           "cast_floats", "circular_append", "ddp_settings",
+           "double_pendulum", "fddp_settings", "format_trace", "humanoid",
+           "kkt", "load_solution", "parallel", "pendulum",
+           "plot_convergence", "plot_oc_solution", "polish", "print_trace",
+           "quadrotor", "replicate_model", "robots", "rotate_segmented",
+           "save_solution", "shift_warm_start", "solve", "solve_batch",
+           "stack_models", "state_vector"]

@@ -64,3 +64,7 @@ class StateVector(StateBase):
 
     def integrate(self, x, dx):
         return x + dx
+
+
+def state_vector(nx: int) -> StateVector:
+    return StateVector(nx_=nx)

@@ -5,13 +5,15 @@ compositing their inertias) and returns JSON; this module freezes it into a
 :class:`~crocoddyl_tpu_torch.dynamics.model.RobotModel` of tensors.
 
 The shared library is built with g++ into ``crocoddyl_tpu_torch/build/``.
-The build writes a temporary file and renames it into place, so several
-processes that load the parser at once never see a half-written library.
+One process builds at a time (a file lock), into a temporary file that it
+renames into place, so several processes that load the parser at once
+never see a half-written library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import json
 import os
 import subprocess
@@ -37,18 +39,21 @@ def _load_lib() -> ctypes.CDLL:
             return _lib
         os.makedirs(BUILD_DIR, exist_ok=True)
         so = os.path.join(BUILD_DIR, "liburdf_loader.so")
-        if (not os.path.exists(so)
-                or os.path.getmtime(so) < os.path.getmtime(_SRC)):
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                subprocess.run(["g++", "-O2", "-std=c++17", "-fPIC", "-shared",
-                                _SRC, "-o", tmp], check=True,
-                               capture_output=True)
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+        # one build at a time across processes
+        with open(os.path.join(BUILD_DIR, "urdf.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if (not os.path.exists(so)
+                    or os.path.getmtime(so) < os.path.getmtime(_SRC)):
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                try:
+                    subprocess.run(["g++", "-O2", "-std=c++17", "-fPIC",
+                                    "-shared", _SRC, "-o", tmp], check=True,
+                                   capture_output=True)
+                    os.replace(tmp, so)
+                finally:
+                    if os.path.exists(tmp):
+                        os.unlink(tmp)
         lib = ctypes.CDLL(so)
         lib.crocotpu_parse_urdf.restype = ctypes.c_void_p
         lib.crocotpu_parse_urdf.argtypes = [ctypes.c_char_p, ctypes.c_int]

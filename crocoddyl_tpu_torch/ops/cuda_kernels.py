@@ -3,8 +3,9 @@
 ``csrc/*.cu`` are compiled at first use, one ``nvcc -gencode
 arch=compute_90a,code=sm_90a -c`` per source, all started together, and
 linked into one shared library with a plain C interface
-(``crocoddyl_tpu_torch/build/kernels/``), loaded with ctypes.  Nothing here
-touches nvcc or the library at import time.
+(``crocoddyl_tpu_torch/build/kernels/``), loaded with ctypes; a file lock
+keeps processes from building at once.  Nothing here touches nvcc or the
+library at import time.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -76,8 +78,12 @@ def build(verbose: bool = False) -> float:
                 h.update(f.read())
         os.makedirs(BUILD_DIR, exist_ok=True)
         so = os.path.join(BUILD_DIR, f"libcroc_kernels_{h.hexdigest()[:16]}.so")
-        if not os.path.exists(so):
-            _build_log = _compile(so, verbose)
+        # one build at a time across processes (the ranks of
+        # parallel/mesh.py): a second process waits, then loads the first's
+        with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not os.path.exists(so):
+                _build_log = _compile(so, verbose)
         lib = ctypes.CDLL(so)
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for t in ("f32", "f64"):

@@ -1,12 +1,13 @@
-"""Iteration diagnostics, logging and persistence (port of
-crocoddyl_tpu/utils/callbacks.py:25-112; the plots are not ported).
+"""Iteration diagnostics, logging, persistence and plots (port of
+crocoddyl_tpu/utils/callbacks.py).
 
 Reference: core/utils/callbacks.hpp:19-29 + src/core/utils/callbacks.cpp
 (CallbackVerbose's 8-column table), bindings __init__.py:356-381
 (CallbackLogger) and :463-492 (saveOCSolution / saveLogfile).  The solver
 records per-iteration diagnostics into the Trace of its Solution
 (``SolverSettings(record_trace=True)``) and these helpers render and persist
-them afterwards, in the reference's golden-log format.
+them afterwards, in the reference's golden-log format.  matplotlib is
+imported inside the plots.
 """
 
 from __future__ import annotations
@@ -112,3 +113,43 @@ def save_solution_csv(prefix: str, solution, dt: Optional[float] = None
                    header=header, comments="")
         names.append(fname)
     return names
+
+
+def plot_oc_solution(solution=None, xs=None, us=None, show: bool = True,
+                     fig_index: int = 1):
+    """plotOCSolution analogue (bindings __init__.py:384-424)."""
+    import matplotlib.pyplot as plt
+    if solution is not None:
+        xs, us = solution.xs, solution.us
+    plt.figure(fig_index)
+    ax1 = plt.subplot(2, 1, 1)
+    ax1.plot(_np(xs))
+    ax1.set_ylabel("state")
+    ax2 = plt.subplot(2, 1, 2)
+    ax2.plot(_np(us))
+    ax2.set_ylabel("control")
+    ax2.set_xlabel("knots")
+    if show:
+        plt.show()
+    return plt.gcf()
+
+
+def plot_convergence(solution, show: bool = True, fig_index: int = 2):
+    """plotConvergence analogue (bindings __init__.py:425-462)."""
+    import matplotlib.pyplot as plt
+    tr = solution.trace
+    n = int(solution.iter)
+    plt.figure(fig_index, figsize=(6.4, 8))
+    names = ["cost", "grad", "stop", "steplength", "xreg"]
+    for i, name in enumerate(names):
+        ax = plt.subplot(len(names), 1, i + 1)
+        data = _np(getattr(tr, name))[:n]
+        if name in ("cost", "grad", "stop", "xreg"):
+            ax.semilogy(np.maximum(np.abs(data), 1e-30))
+        else:
+            ax.plot(data)
+        ax.set_ylabel(name)
+    plt.xlabel("iteration")
+    if show:
+        plt.show()
+    return plt.gcf()

@@ -192,7 +192,8 @@ REFERENCE_JOBS = (
     f"{_R}generic_node:jax_algorithms_reference:arm7",
     f"{_R}generic_node:jax_reference:solve",
     f"{_R}generic_node:jax_reference:double_pendulum",
-    f"{_R}generic_node:jax_algorithms_reference:double_pendulum")
+    f"{_R}generic_node:jax_algorithms_reference:double_pendulum",
+    f"{_R}parallel:jax_reference:unicycle")
 # children the prefetch runs at once, and their niceness: beside the six
 # test workers of the tier-1 run on eight cores
 PREFETCH_SLOTS = 3

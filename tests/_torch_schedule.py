@@ -16,7 +16,9 @@ times of the tier-1 run, 6 workers, before this plugin).
 This plugin keeps the order of tests/conftest.py's front group in its own
 way: the gait tests head the first chunks, one a worker, each first in its
 process as conftest.py wants (their first compile writes the persistent
-cache from a fresh heap).  The other tests of the JAX package follow,
+cache from a fresh heap).  The JAX package's other tests that take 100 s
+or more (``SLOW``, longest first) head the next chunks, one each.  The
+other tests of the JAX package follow,
 each module's spread evenly over their order, so that consecutive tests
 come from different modules; a module with a module-scoped fixture of its
 own (a problem built once for its tests) stays one block, and the blocks
@@ -32,6 +34,12 @@ tests, 1116 s in fact), the order ends in 1092 s; the collection's own
 order in 1271 s; this order without LONG (every module spread over the
 whole order) in 1298 s; and the gait tests at the chunks' heads with the
 rest in collection order and the port's tests last in 1582 s.
+``SLOW`` came when the suite grew to 449 tests, whose first chunk is 18
+tests, not 17: replayed with the test times of a tier-1 run of 449 tests
+(6884 s of tests, 1147 s on six workers if perfectly shared), the order
+without ``SLOW`` ends in 1324 s (1350 s in fact: a 245-s test started
+1009 s in), with it in 1184 s; over the 426 tests without the three
+modules that came then, in 1143 s without it and 1178 s with it.
 
 Registered through ``pytest_plugins`` by tests/test_torch_xla_mappings.py,
 so every process that collects the suite loads it, and every worker orders
@@ -51,6 +59,25 @@ import pytest
 # first EARLY of the order, so that no long test starts near the end
 LONG = ("tests/test_examples_golden.py", "tests/test_rh5.py")
 EARLY = 0.8
+# the JAX package's other tests that took 100 s or more in a tier-1 run
+# (6 workers; 128-268 s each), longest first: each heads a chunk after the
+# gait tests, so that none starts late and no worker is handed two at once
+_G = "tests/test_examples_golden.py::test_example_matches_golden"
+SLOW = ("tests/test_rh5.py::test_zmp_and_cop_analysis",
+        f"{_G}[bipedal_walk_cop_fast]",
+        "tests/test_fused_scans.py::test_solve_with_fused_scans_matches",
+        "tests/test_rh5.py::test_squat_problem_structure_and_solve",
+        "tests/test_fddp_batch.py::test_matches_vmapped_solve[1]",
+        f"{_G}[humanoid_taichi_fast]",
+        f"{_G}[bipedal_walk_fast]",
+        f"{_G}[humanoid_manipulation_ubound_fast]",
+        f"{_G}[humanoid_manipulation_fast]",
+        f"{_G}[bipedal_walk_changing_gait_fast]",
+        f"{_G}[quadrupedal_walk_ubound_fast]",
+        "tests/test_rh5.py::test_balancing_problem_structure",
+        f"{_G}[quadrupedal_walking_fast]",
+        "tests/test_fused_node.py::test_solve_with_fused_path",
+        "tests/test_kin_tangents.py::test_tangent_basis_feeds_node_derivatives")
 
 
 def _module(item) -> str:
@@ -100,7 +127,10 @@ def first_chunk(n, workers):
 def schedule(items, workers):
     """The order of ``items`` for ``workers`` xdist workers (see the module
     docstring)."""
-    front = [it for it in items if "test_gaits" in it.nodeid]
+    slow = {n: i for i, n in enumerate(SLOW)}
+    front = ([it for it in items if "test_gaits" in it.nodeid]
+             + sorted((it for it in items if it.nodeid in slow),
+                      key=lambda it: slow[it.nodeid]))
     port = [it for it in items if _module(it).split("/")[-1]
             .startswith("test_torch_")]
     taken = {id(it) for it in front + port}

@@ -92,6 +92,22 @@ def test_schedule_orders_the_collection(sched):
     assert last < sched.EARLY * 87 + 7
 
 
+def test_slow_entries_name_tier1_tests(sched):
+    """Every ``SLOW`` entry names a test the tier-1 run collects (not marked
+    slow): a renamed test would leave the front unnoticed."""
+    import importlib
+    for nodeid in sched.SLOW:
+        path, name = nodeid.split("::")
+        func, _, param = name.partition("[")
+        fn = getattr(importlib.import_module(
+            path[:-len(".py")].replace("/", ".")), func)
+        marks = getattr(fn, "pytestmark", [])
+        ids = {str(v) for m in marks if m.name == "parametrize"
+               for v in m.args[1]}
+        assert not param or param[:-1] in ids, nodeid
+        assert not any(m.name == "slow" for m in marks), nodeid
+
+
 @pytest.mark.parametrize("n", [147, 424])
 def test_first_chunk_is_xdists(sched, n):
     """The schedule's ``first_chunk`` is the chunk of consecutive tests that
