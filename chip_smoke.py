@@ -2,8 +2,8 @@
 """Drive the PyTorch port's two paths, the rest of ``solve``, the quadruped
 gaits, the MPC loop, the generic rigid-body node, the biped, humanoid and
 quadrotor of the model zoo, the segmented problems of the true impulse
-switch knot, and the data-parallel fleet with the display and aot layers
-once on one NVIDIA GPU.
+switch knot, the data-parallel fleet with the display and aot layers, and
+whole exported solves once on one NVIDIA GPU.
 
 Phases (any failure exits non-zero; each prints its seconds):
 
@@ -67,10 +67,10 @@ Phases (any failure exits non-zero; each prints its seconds):
    walk through kernels 1, 4 and 5 and the Box-FDDP walk through kernel 1
    and the generic passes, with the bar of tests/test_examples_golden.py;
    (c) the receding-horizon loop of examples/mpc_receding_horizon.py on
-   the T=108 walk in float32: a maxiter=60 plan, then 20 ticks of horizon
+   the T=108 walk in float32: a maxiter=60 plan, then 10 ticks of horizon
    rotation, shifted warm start and maxiter=1 replan (tick latency p50 and
    p90, the plant step timed apart, the kernel descriptors' share,
-   launches per tick, no divergence), and 3 float64 ticks against the
+   launches per tick, no divergence), and 2 float64 ticks against the
    plain path (same decisions; cost and the plant's x0 rtol 1e-8);
 10. generic nodes: the two fixed-base anchors of tests/golden.json built
    from the port's modules and solved on the card in float64 through the
@@ -122,7 +122,7 @@ Phases (any failure exits non-zero; each prints its seconds):
    float64 (``maxiter=60``) on the card against the CPU; (c) the
    true-impulse CoP walk (examples/bipedal_walk_cop.py --impulse, T=60) as
    a float32 cold replan (every kernel at 0 launches) and in float64 on
-   the card against the CPU (``cost_tol`` from 1e-10); (d) 4 float32 MPC
+   the card against the CPU (``cost_tol`` from 1e-10); (d) 2 float32 MPC
    ticks of ``rotate_segmented``, ``shift_warm_start`` and a replan on the
    reduced walk (p50, p90) and 2 float64 ticks kernel against plain path;
    (e) the unicycle anchors with ``ms_chunk=8`` and
@@ -146,14 +146,27 @@ Phases (any failure exits non-zero; each prints its seconds):
    CUDA tensors); (d) ``skeleton`` of the float64 walk solution on the card
    against the CPU (atol 1e-12) and ``export_html``'s JSON payload; (e)
    ``aot.precompile`` of a ``solve_batch`` call: the next call compiles
-   nothing, builds no kernel descriptor and gives the same costs.
+   nothing, builds no kernel descriptor and gives the same costs;
+14. export: the T=108 walk's replan ``solve(maxiter=1, fused_scans=True)``
+   and phase 4's batch step ``solve_batch(maxiter=1)`` at B=256, whose
+   ladders, line searches and iteration loops decide on the device, each
+   recorded whole by ``aot.export_bytes`` in float64 and float32 and
+   loaded with ``aot.import_bytes`` (program bytes, export seconds): the
+   float64 programs against the eager solves on the card (the same
+   decisions, lane by lane; cost rtol 1e-12), the float32 programs'
+   launches of kernels 1, 4 and 5 and of kernels 1, 2 and 3 (the custom
+   ops ``torch.ops.crocoddyl_tpu_torch.*``; no plain call), CUDA-event
+   medians of the eager solves and of the programs, and the stream syncs
+   and device-to-host copies of one run of each under ``torch.profiler``
+   beside the counts of the solvers that decided on the host.
 
 The line before the last two is the ``kernels`` JSON object: for each of
 the five kernels its launches on its lane's main path (and on each replan
 of phase 6, ``launches_surface``, per MPC tick, ``launches_mpc``, on
 phase 10's two generic solves, ``launches_generic``, on phase 11's
-solves, ``launches_zoo``, on phase 12's, ``launches_seg``, and on each
-rank of phase 13, ``launches_fleet``), its error against
+solves, ``launches_zoo``, on phase 12's, ``launches_seg``, on each
+rank of phase 13, ``launches_fleet``, and on phase 14's float32 programs,
+``launches_export``), its error against
 the plain version, its time and the plain version's, and its bound: the
 larger of its bytes (inputs read once, outputs written once) over 3.35
 TB/s and its operations over 67 TFLOP/s (float32 outside the tensor cores;
@@ -697,7 +710,7 @@ def profile_step(torch, step, keys, warmup=True):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kern = {k: 0.0 for k in keys}
-    total, glue_n, syncs, h2d = 0.0, 0, 0, 0
+    total, glue_n, syncs, h2d, d2h = 0.0, 0, 0, 0, 0
     # the raw events: ``prof.events()`` parses each into a Python object
     # (~80 µs an event), minutes for the ~3M events of a box replan
     for e in prof.profiler.kineto_results.events():
@@ -710,6 +723,7 @@ def profile_step(torch, step, keys, warmup=True):
         ms = e.duration_ns() / 1e6
         total += ms
         h2d += "HtoD" in name
+        d2h += "DtoH" in name
         for k in kern:
             if f"{k}_kernel" in name:
                 kern[k] += ms
@@ -722,7 +736,7 @@ def profile_step(torch, step, keys, warmup=True):
     return {"kernel_ms": kern, "glue_ms": glue, "glue_events": glue_n,
             "device_ms": total, "wall_ms": wall,
             "idle_ms": wall - total, "idle_share": (wall - total) / wall,
-            "stream_syncs": syncs, "h2d_copies": h2d}
+            "stream_syncs": syncs, "h2d_copies": h2d, "d2h_copies": d2h}
 
 
 # The Box-FDDP replans' cost is held to 1e-8 or to SENS_FACTOR times the
@@ -861,8 +875,10 @@ GAITS = {
 # (its flight knots have every contact inactive) and a gait that swings
 # two feet at once
 GAITS_F64 = ("jumping", "trotting")
-MPC_TICKS = 20      # examples/mpc_receding_horizon.py:65 runs 50
-MPC_F64_TICKS = 3
+# examples/mpc_receding_horizon.py:65 runs 50; 20 and 3 until phase 14
+# came: the script's time limit
+MPC_TICKS = 10
+MPC_F64_TICKS = 2
 
 
 def gait_problem(torch, name):
@@ -1726,7 +1742,7 @@ def run_zoo(torch, ck, dev, card):
 # Phase 12: segmented problems and the true impulse switch knot
 # ---------------------------------------------------------------------------
 
-SEG_TICKS = 4       # 10 until phase 13 came: the script's time limit
+SEG_TICKS = 2       # 10 until phase 13, 4 until phase 14: the time limit
 SEG_F64_TICKS = 2
 SEG_MAXITER = 60     # tests/test_gaits.py:113-116
 
@@ -2296,6 +2312,118 @@ def run_fleet(torch, ck, dev, card, prob, x0s, xs0, us0, batch64):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: whole solves on the device, exported
+# ---------------------------------------------------------------------------
+
+# the solution fields an exported solve returns; the decisions among them
+EXPORT_FIELDS = ("cost", "iter", "steplength", "is_feasible", "converged",
+                 "diverged", "xreg", "stop", "xs", "us", "K")
+EXPORT_DECISIONS = ("iter", "steplength", "is_feasible", "converged",
+                    "diverged", "xreg")
+# stream syncs of one float32 cold replan and one batch step in phase 8
+# when the ladder and the line search decided on the host (PERF.md §5)
+HOST_DECIDED_SYNCS = {"replan": 194, "batch": 189}
+
+
+def run_export(torch, ck, dev, card, p32, p64, xs0, us0, x0s):
+    """Phase 14: the T=108 walk's replan ``solve(maxiter=1,
+    fused_scans=True)`` and phase 4's batch step ``solve_batch(maxiter=1)``
+    at B=256, each exported with ``aot.export_bytes`` in float64 and in
+    float32 and loaded with ``aot.import_bytes``: the float64 programs
+    against the eager port solves on the card (the same decisions, lane
+    by lane; cost rtol 1e-12), the float32 programs' kernel launches (the
+    counts zeroed before each run), the program's size and export time,
+    CUDA-event medians of the eager solve and of the loaded program, and
+    the stream syncs and device-to-host copies of one run of each under
+    ``torch.profiler``.  Returns {case: {wrapper: launches}}."""
+    from crocoddyl_tpu_torch import SolverSettings, solve, solve_batch
+    from crocoddyl_tpu_torch.utils import aot
+    f32, f64 = torch.float32, torch.float64
+    T = p64.T
+    replan_st = SolverSettings(maxiter=1, fused_scans=True)
+    batch_st = SolverSettings(maxiter=1, record_trace=False,
+                              parallel_linesearch=False)
+
+    def fields(sol):
+        return tuple(getattr(sol, f) for f in EXPORT_FIELDS)
+    cases = {
+        "replan": (lambda p: lambda xs, us: fields(solve(
+            p, xs, us, replan_st, device=dev)),
+            lambda dt: (xs0.to(dev, dt), us0.to(dev, dt)),
+            ("node", "riccati_b1", "rollout_b1")),
+        "batch": (lambda p: lambda x0s_, xs, us: fields(solve_batch(
+            p, x0s_, xs, us, batch_st, device=dev)),
+            lambda dt: (torch.tensor(x0s, dtype=dt, device=dev),
+                        xs0.to(dev, dt), us0.to(dev, dt)),
+            ("node", "riccati", "rollout"))}
+    TAG = {f64: "f64", f32: "f32"}
+    launches = {}
+    for name, (make, args_of, keys) in cases.items():
+        progs = {}
+        for dt, p in ((f64, p64), (f32, p32)):
+            fn, args = make(p), args_of(dt)
+            fn(*args)
+            t0 = time.perf_counter()
+            data = aot.export_bytes(fn, *args)
+            t_exp = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prog = aot.import_bytes(data)
+            prog(*args)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            log(f"[export] {name} {TAG[dt]} T={T}: program "
+                f"{len(data)} bytes, export {t_exp:.1f} s, load and first "
+                f"run {t_load:.1f} s")
+            progs[dt] = (fn, prog, args)
+        fn, prog, args = progs[f64]
+        want, got = fn(*args), prog(*args)
+        for fld, a, b in zip(EXPORT_FIELDS, got, want):
+            need(a.shape == b.shape and a.dtype == b.dtype,
+                 f"export {name}: {fld} shape or dtype")
+            if fld in EXPORT_DECISIONS:
+                need(torch.equal(a, b), f"export {name} f64: {fld} differs")
+        rc = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+        du = float((got[9] - want[9]).abs().max())
+        log(f"[export] {name} f64 T={T}: the loaded program against the "
+            f"eager solve on the card: {', '.join(EXPORT_DECISIONS)} "
+            f"equal, cost rtol {rc:.3e}, us max abs {du:.3e}")
+        need(rc <= 1e-12, f"export {name}: cost rtol {rc:.3e}")
+        fn, prog, args = progs[f32]
+        reset_counts()
+        out = prog(*args)
+        torch.cuda.synchronize()
+        launches[name] = {w.__name__: w.launches for w in ck.WRAPPERS}
+        got_l = {k: launches[name][WRAPPER[k]] for k in keys}
+        log(f"[export] {name} f32 loaded program: launches {got_l}, plain "
+            f"calls {plain_calls()}, cost "
+            + (f"{float(out[0]):.6e}" if out[0].dim() == 0 else
+               f"median {float(out[0].median()):.6e}"))
+        need(all(v > 0 for v in got_l.values()),
+             f"export {name}: kernels not launched {got_l}")
+        need(not any(plain_calls()), f"export {name}: plain versions ran")
+        need(bool(torch.isfinite(out[0]).all()), f"export {name}: cost")
+        eager_ms = cuda_time(torch, lambda: fn(*args))
+        prog_ms = cuda_time(torch, lambda: prog(*args))
+        log(f"[export] time f32 T={T} {name}: eager {eager_ms:.2f} ms, "
+            f"loaded program {prog_ms:.2f} ms (CUDA events, median of 5)  "
+            f"({card})")
+        for tag, f in (("eager", fn), ("loaded program", prog)):
+            prof = profile_step(torch, lambda: f(*args), keys)
+            if prof is None:
+                log(f"[export] {name} {tag}: no device time in the trace: "
+                    f"syncs not measured")
+                continue
+            log(f"[export] syncs f32 {name} {tag}: {prof['stream_syncs']} "
+                f"stream syncs, {prof['d2h_copies']} device-to-host and "
+                f"{prof['h2d_copies']} host-to-device copies, idle "
+                f"{100 * prof['idle_share']:.1f} % of {prof['wall_ms']:.1f}"
+                f" ms (host-decided solver: {HOST_DECIDED_SYNCS[name]} "
+                f"syncs)  ({card})")
+    log(f"[export] custom-op launches of the float32 programs: {launches}")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2667,6 +2795,10 @@ def main():
         d = ck.descriptor(seg, dev, f32)
         return d.meta, d.robot, d.par
 
+    # the step length and the regularization as the solvers pass them: 0-d
+    # tensors on the card
+    alpha_d = torch.full((), 0.5, dtype=f32, device=dev)
+    reg_d = torch.full((), REG_F32, dtype=f32, device=dev)
     rows = [
         ("node", "crocoddyl_tpu_torch/csrc/node_kernel.cu",
          "crocoddyl_tpu/ops/fused_node.py:1477",
@@ -2685,21 +2817,22 @@ def main():
          launches["riccati"]),
         ("rollout", "crocoddyl_tpu_torch/csrc/rollout_kernel.cu",
          "crocoddyl_tpu/ops/fused_scans.py:708",
-         lambda: ck.trial_rollout(*ro_args, 0.5),
-         lambda: fsc.trial_rollout_lanes_plain(*ro_args, inp["fs"][-1], 0.5),
+         lambda: ck.trial_rollout(*ro_args, alpha_d),
+         lambda: fsc.trial_rollout_lanes_plain(*ro_args, inp["fs"][-1],
+                                               alpha_d),
          (ro_args[1:], tables(p32.running)),
          ops["rollout_step"] * T * B_BENCH, launches["rollout"]),
         ("riccati_b1", "crocoddyl_tpu_torch/csrc/riccati_fused_kernel.cu",
          "crocoddyl_tpu/ops/fused_scans.py:215",
-         lambda: ck.riccati_backward_b1(*ric_b1, REG_F32, REG_F32),
-         lambda: fsc.riccati_backward_fused_plain(*ric_b1, REG_F32, REG_F32),
+         lambda: ck.riccati_backward_b1(*ric_b1, reg_d, reg_d),
+         lambda: fsc.riccati_backward_fused_plain(*ric_b1, reg_d, reg_d),
          (ric_b1[0], ric_b1[1].Lx, ric_b1[1].Lxx, ric_b1[2]),
          ops["riccati_term"] + T * ops["riccati_step"],
          launches_b1["riccati_b1"]),
         ("rollout_b1", "crocoddyl_tpu_torch/csrc/rollout_fused_kernel.cu",
          "crocoddyl_tpu/ops/fused_scans.py:327",
-         lambda: ck.trial_rollout_b1(*ro_b1, 0.5),
-         lambda: fsc.trial_rollout_fused_plain(*ro_b1, 0.5),
+         lambda: ck.trial_rollout_b1(*ro_b1, alpha_d),
+         lambda: fsc.trial_rollout_fused_plain(*ro_b1, alpha_d),
          (ro_b1[1:], tables(p32.running)), ops["rollout_step"] * T,
          launches_b1["rollout_b1"]),
     ]
@@ -2797,6 +2930,10 @@ def main():
     # ---- 13. the fleet over ranks, display and aot ------------------------
     fleet = run_fleet(torch, ck, dev, card, prob, x0s, xs0, us0, batch64)
     phase_done("fleet")
+
+    # ---- 14. whole solves on the device, exported ------------------------
+    exported = run_export(torch, ck, dev, card, p32, p64, xs0, us0, x0s)
+    phase_done("export")
     for k in kernels:
         k["launches_mpc"] = per_tick[WRAPPER[k["name"]]]
         k["launches_generic"] = {a: n[WRAPPER[k["name"]]]
@@ -2807,6 +2944,8 @@ def main():
                              for a, n in seg.items()}
         k["launches_fleet"] = {a: n[WRAPPER[k["name"]]]
                                for a, n in fleet.items()}
+        k["launches_export"] = {a: n[WRAPPER[k["name"]]]
+                                for a, n in exported.items()}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,12 +19,13 @@ derivatives, per knot under ``torch.func.vmap``.
 
 from __future__ import annotations
 
-import functools
 from typing import Any
 
 import torch
 
-from ..utils.struct import PyTreeNode, tree_flatten, tree_leaves, tree_map
+from ..utils.struct import (PyTreeNode, flat_spec, tree_flatten, tree_leaves,
+                            tree_map, unflat_spec)
+from .solvers import control
 
 
 def _lane_node(model) -> bool:
@@ -37,18 +38,73 @@ def _seg_len(model) -> int:
     return tree_leaves(model)[0].shape[0]
 
 
-def node_calc(seg, xs: torch.Tensor, us: torch.Tensor):
+def node_calc(seg, xs: torch.Tensor, us: torch.Tensor, knots=None):
     """(xnext (N, nx), cost (N,)) of the K-knot stack ``seg`` at the rows
-    of xs (N, nx), us (N, nu): for a lane node one plain lane primal
-    (``ops/fused_node.lane_calc_primal``) of N = K·A nodes, node n at knot
+    of xs (N, nx), us (N, nu), or of its knots lo:hi with ``knots`` =
+    (lo, hi): for a lane node one plain lane primal
+    (``ops/fused_node.calc_primal``) of N = K·A nodes, node n at knot
     n // A; otherwise (N = K) each knot's own ``calc`` under
     ``torch.func.vmap``."""
     from ..ops import fused_node as fn
     if _lane_node(seg):
-        xn, c = fn.lane_calc_primal(fn.lane_params(seg, xs.shape[0]), xs.T,
-                                    us.T)
+        xn, c = fn.calc_primal(seg, xs.T, us.T, *(knots or ()))
         return xn.T, c
-    return torch.func.vmap(lambda m, x, u: m.calc(x, u))(seg, xs, us)
+    if knots is not None:
+        seg = tree_map(lambda l: l[knots[0]:knots[1]], seg)
+    return _rows(seg, "calc", True, xs, us)
+
+
+def _rows_eager(model, method, batched, *args):
+    def f(m, *a):
+        return getattr(m, method)(*a)
+    if batched:
+        return torch.func.vmap(f)(model, *args)
+    return torch.func.vmap(lambda *a: f(model, *a))(*args)
+
+
+def _rows_op(leaves, spec, method, batched, args):
+    return list(tree_leaves(_rows_eager(unflat_spec(leaves, spec), method,
+                                        batched, *args)))
+
+
+_rows_lib = torch.library.custom_op(
+    "crocoddyl_tpu_torch::model_rows", _rows_op, mutates_args=(),
+    schema="(Tensor[] leaves, str spec, str method, bool batched, "
+           "Tensor[] args) -> Tensor[]")
+
+
+@_rows_lib.register_fake
+def _(leaves, spec, method, batched, args):
+    m = unflat_spec(leaves, spec)
+    x = args[0]
+    N, e = x.shape[0], x.new_empty
+    if method == "calc_terminal":
+        return [e(N)]
+    if method == "calc":
+        return [e(x.shape), e(N)]
+    ndx, nu = m.state.ndx, m.nu
+    return [e(N, ndx, ndx), e(N, ndx, nu), e(N, ndx), e(N, nu),
+            e(N, ndx, ndx), e(N, ndx, nu), e(N, nu, nu), e(x.shape), e(N)]
+
+
+def _rows(model, method, batched, *args):
+    """``model.<method>`` (``calc``, ``calc_terminal`` or ``calc_both``) at
+    the rows of ``args`` under ``torch.func.vmap``, the model's leaves
+    batched along the rows too with ``batched``.  Under ``torch.export``
+    the rows are the op ``torch.ops.crocoddyl_tpu_torch.model_rows``,
+    which runs the same vmap: the exporter records it as one node (and
+    does not trace ``torch.func`` transforms inside a loop's body)."""
+    if not control.exporting():
+        return _rows_eager(model, method, batched, *args)
+    leaves, spec = flat_spec(model)
+    out = torch.ops.crocoddyl_tpu_torch.model_rows(leaves, spec, method,
+                                                   batched, list(args))
+    if method == "calc_terminal":
+        return out[0]
+    if method == "calc":
+        return out[0], out[1]
+    from .action import NodeDerivs
+    return NodeDerivs(*out[:7]), out[7], out[8]
 
 
 def terminal_calc(term, xs: torch.Tensor) -> torch.Tensor:
@@ -61,7 +117,7 @@ def terminal_calc(term, xs: torch.Tensor) -> torch.Tensor:
         return node_calc(knot, xs, xs.new_zeros((xs.shape[0], term.nu)))[1]
     if xs.shape[0] == 1:
         return term.calc_terminal(xs[0])[None]
-    return torch.func.vmap(term.calc_terminal)(xs)
+    return _rows(term, "calc_terminal", False, xs)
 
 
 class ShootingProblem(PyTreeNode):
@@ -105,7 +161,7 @@ class ShootingProblem(PyTreeNode):
             i += n
         return out
 
-    @functools.cached_property
+    @control.cached_property
     def _seg_groups(self):
         """Segment indices grouped by structure (type, static fields and
         leaf structure), in order of first appearance (problem.py:65-78)."""
@@ -121,7 +177,7 @@ class ShootingProblem(PyTreeNode):
                 groups.append([si])
         return groups
 
-    @functools.cached_property
+    @control.cached_property
     def _blocks(self):
         """[(block model, knot indices (K,) or None)] per group: a group of
         several segments is one model over its concatenated knots (built
@@ -141,7 +197,7 @@ class ShootingProblem(PyTreeNode):
             out.append((block, rows))
         return out
 
-    @functools.cached_property
+    @control.cached_property
     def _time_order(self):
         """The permutation that puts the concatenated block outputs back in
         time order (None for one group)."""
@@ -166,7 +222,7 @@ class ShootingProblem(PyTreeNode):
         return tree_map(lambda *ls: torch.cat(ls).index_select(0, order),
                         *outs)
 
-    @functools.cached_property
+    @control.cached_property
     def knots(self):
         """The T running knots and the terminal node as a dt=0 knot, stacked
         (T+1, ...), for a one-segment problem: the nodes of one node-kernel
@@ -176,23 +232,24 @@ class ShootingProblem(PyTreeNode):
         return tree_map(lambda r, t: torch.cat([r, t]), self.segments[0],
                         self.terminal_knot)
 
-    @functools.cached_property
+    @control.cached_property
     def terminal_knot(self):
         """The terminal node as one dt=0 knot (leaves (1, ...))."""
         knot = tree_map(lambda l: l[None], self.terminal)
         return knot.replace(dt=torch.zeros_like(knot.dt))
 
-    @functools.cached_property
+    @control.cached_property
     def _knot_list(self):
         """The T running knots of every segment in time order for the
-        sequential rollouts, sliced once: (True, a one-knot stack (leaves
-        (1, ...))) for a lane segment, (False, a single model) otherwise."""
+        sequential rollouts: (True, (the segment, the knot's index in it))
+        for a lane segment, (False, a single model, sliced once)
+        otherwise."""
         out = []
         for seg in self.segments:
             lanes = _lane_node(seg)
             for t in range(_seg_len(seg)):
-                out.append((lanes, tree_map(lambda l: l[t:t + 1], seg)
-                            if lanes else tree_map(lambda l: l[t], seg)))
+                out.append((lanes, (seg, t) if lanes
+                            else tree_map(lambda l: l[t], seg)))
         return out
 
     def knot_calc(self, t: int, xs: torch.Tensor, us: torch.Tensor):
@@ -200,11 +257,12 @@ class ShootingProblem(PyTreeNode):
         (N, nx), us (N, nu) (``node_calc`` of that knot)."""
         lanes, knot = self._knot_list[t]
         if lanes:
-            return node_calc(knot, xs, us)
+            seg, i = knot
+            return node_calc(seg, xs, us, (i, i + 1))
         if xs.shape[0] == 1:
             xn, c = knot.calc(xs[0], us[0])
             return xn[None], c[None]
-        return torch.func.vmap(knot.calc)(xs, us)
+        return _rows(knot, "calc", False, xs, us)
 
     def calc(self, xs: torch.Tensor, us: torch.Tensor):
         """(xnexts (T, nx), costs (T+1,)) at the trajectory, costs[T] the
@@ -239,8 +297,7 @@ class ShootingProblem(PyTreeNode):
         def block(seg, x, u):
             if _lane_node(seg):
                 return self._lanes(seg, x, u)
-            d, xn, c = torch.func.vmap(
-                lambda m, xx, uu: m.calc_both(xx, uu))(seg, x, u)
+            d, xn, c = _rows(seg, "calc_both", True, x, u)
             return tree_map(torch.Tensor.contiguous, d), xn, c
         derivs, xnexts, costs = self._grouped_apply(block, xs[:T], us)
         term = self.terminal

@@ -6,7 +6,10 @@ The loop body mirrors the JAX one line by line, because its decisions follow
 from that order: the free set from the gradient's sign at the bounds, the
 Newton step on the free subspace through the full-size masked system
 (F·H·F + diag(clamped))·dz = F·rhs, ten projected Armijo trials, and the
-exit test.  A Cholesky failure is the same flag as in JAX: NaN in the factor
+exit test.  The loop is JAX's ``while_loop`` on ``it < maxiter & ~done``
+(boxqp.py:92) on the device (``control.while_loop``), with one shortcut
+that gives the same x, sets, flags and count: an iteration that leaves x
+unchanged jumps the count to maxiter.  A Cholesky failure is the same flag as in JAX: NaN in the factor
 (``ops/smallchol.chol`` rebuilds it from ``torch.linalg.cholesky_ex``'s
 ``info``).
 """
@@ -16,16 +19,8 @@ from __future__ import annotations
 import torch
 
 from ...ops.smallchol import cho_solve, chol
+from . import control
 from ...utils.struct import PyTreeNode
-
-# On the card the loop runs in masked blocks of this many iterations with
-# one host read after each block, not one host sync per iteration: an
-# iteration after ``done`` changes nothing (every update is masked by
-# ``active``), so a block gives the same x, sets, flags and count as the
-# JAX while_loop, which stops at ``done``.  On the CPU a read costs no
-# sync, and a block is one iteration.
-_BLOCK_CUDA = 4
-
 
 class BoxQPSolution(PyTreeNode):
     """x, the free set, Hff⁻¹ scattered into the full (n, n) matrix with
@@ -67,12 +62,12 @@ def solve(H: torch.Tensor, q: torch.Tensor, lb: torch.Tensor,
         clamped = ((x == lb) & (g > 0)) | ((x == ub) & (g < 0))
         return g, ~clamped
 
-    def body(x, it, done, failed):
-        active = ~done
+    def body(c):
+        x, it, done, failed = c
         g, free = sets(x)
         conv = (g.abs().max() <= th_grad) | ~free.any()
         L = chol(_masked_system(H, free, reg))
-        failed_n = failed | torch.isnan(L).any()
+        failed = failed | torch.isnan(L).any()
         rhs = torch.where(free, -(q + H @ torch.where(free,
                                                       torch.zeros_like(x), x)),
                           torch.zeros_like(x))
@@ -83,35 +78,22 @@ def solve(H: torch.Tensor, q: torch.Tensor, lb: torch.Tensor,
         xnews = torch.clamp(x + alphas[:, None] * dx, lb, ub)
         fnew = 0.5 * ((xnews @ H.T) * xnews).sum(-1) + xnews @ q
         ok = fold - fnew > th_acceptstep * ((x - xnews) @ g)
-        first = xnews[torch.argmax(ok.to(torch.int32))]
-        xnew = torch.where(ok.any(), first, x)
-        # the JAX body keeps x on conv (its done is False while it runs)
-        x = torch.where(active & ~conv, xnew, x)
-        it = it + active.to(it.dtype)
-        failed = torch.where(active, failed_n, failed)
-        done = done | (active & (conv | failed_n))
-        return x, it, done, failed
+        first = control.pick(xnews, torch.argmax(ok.to(torch.int32)))
+        xnew = torch.where(conv, x, torch.where(ok.any(), first, x))
+        done = conv | failed
+        # the body is a function of x alone while the loop runs: an
+        # iteration that leaves x as it was repeats itself up to maxiter (no
+        # exit test passes: one clamped and one free coordinate keep max|g|
+        # above th_grad), so the count jumps there and the loop ends
+        fixed = ~done & (xnew == x).all()
+        it = torch.where(fixed, torch.full_like(it, maxiter), it + 1)
+        return xnew, it, done, failed
 
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    failed = torch.zeros((), dtype=torch.bool, device=dev)
-    block = _BLOCK_CUDA if H.is_cuda else 1
-    runs = 0
-    while runs < maxiter:
-        for _ in range(min(block, maxiter - runs)):
-            x_in = x
-            x, it, done, failed = body(x, it, done, failed)
-            runs += 1
-        stop, fixed = torch.stack([done, (x == x_in).all()]).tolist()
-        if stop:
-            break
-        if fixed:
-            # the body is a function of x alone while the loop runs: an
-            # iteration that left x as it was repeats itself up to maxiter
-            # (no exit test passes: one clamped and one free coordinate
-            # keep max|g| above th_grad), so the count jumps there
-            it = it + (maxiter - runs)
-            break
+    zero = torch.zeros((), dtype=torch.bool, device=dev)
+    x, it, _, failed = control.while_loop(
+        lambda c: (c[1] < maxiter) & ~c[2], body,
+        (x, torch.zeros((), dtype=torch.int32, device=dev), zero,
+         zero.clone()))
 
     # final sets and the free-block inverse for the caller (BoxDDP gains)
     _, free = sets(x)

@@ -35,11 +35,14 @@ the problem's structure and the settings, as the JAX ``use_fscan`` does
   pass).
 
 On CUDA tensors the kernels run on the card; the generic passes are plain
-PyTorch on whatever device the problem is on.  The JAX version is one
-jitted program with ``while_loop``s; here the regularization ladder, the
-line search and the iteration loop are Python loops with one host sync per
-probe, trial or iteration.  The decisions are the same: same probes, same
-accepted steps, same regularization schedule.
+PyTorch on whatever device the problem is on.  As in the JAX version, whose
+``solve`` is one jitted program with ``while_loop``s, the regularization
+ladder, the line search and the iteration loop decide on the device: their
+state is 0-d tensors, and ``control.while_loop``/``control.cond`` run them
+(eagerly, one host read of each predicate; or recorded by ``torch.export``,
+so that ``utils/aot.export_bytes`` serializes a whole solve).  The decisions
+are the JAX ones: same probes, same accepted steps, same regularization
+schedule.
 """
 
 from __future__ import annotations
@@ -51,13 +54,14 @@ import torch
 
 from ...dynamics.model import JointType
 from ...dynamics.states import StateMultibody
+from ...ops import cuda_kernels as _ck
 from ...ops import fused_node as _fn
 from ...ops import fused_scans as _fsc
 from ...ops.smallchol import cho_solve, chol
 from ...utils.struct import tree_leaves, tree_map
 from ..action import ActionModel
 from ..problem import node_calc, terminal_calc
-from . import boxqp
+from . import boxqp, control
 from .parallel_riccati import backward_pass_parallel
 
 
@@ -202,6 +206,30 @@ def _refusal(problem, settings: SolverSettings) -> Optional[str]:
             "ImpulseNode, or a model with its own calc and derivatives)")
 
 
+def _export_refusal(problem) -> Optional[str]:
+    """The node kind of ``problem`` that ``torch.export`` (torch 2.13)
+    cannot record in a solve, or None.  Such nodes take their derivatives
+    through ``torch.func`` transforms (``jacfwd``, ``jvp``, ``vmap`` over
+    the knots), which the exporter's trace does not pass: a
+    ``RigidBodyNode`` that the node kernel does not admit, an
+    ``ImpulseNode``, and an ``ActionModel`` with the default AD
+    derivatives."""
+    from ...models.multibody.nodes import ImpulseNode, RigidBodyNode
+    for m in (*problem.segments, problem.terminal):
+        if _fn.supports(m):
+            continue
+        if isinstance(m, ImpulseNode):
+            return "an ImpulseNode (jacfwd through its autograd.Function " \
+                   "JVP rules)"
+        if isinstance(m, RigidBodyNode):
+            return "a RigidBodyNode the node kernel does not admit (its " \
+                   "derivatives by jacfwd under torch.func.vmap)"
+        if type(m).calc_diff is ActionModel.calc_diff:
+            return (f"a {type(m).__name__} (ActionModel's default "
+                    "derivatives by torch.func.jacfwd)")
+    return None
+
+
 def supports(problem, settings: SolverSettings) -> bool:
     """True iff ``solve`` covers this problem and configuration: segments
     of ``ActionModel``s (``RigidBodyNode`` and ``ImpulseNode`` included),
@@ -220,40 +248,82 @@ def _state_ops(problem):
     nq, nv = st.nq, st.nv
 
     def diff(xa, xb):
-        return _fn._lane_state_diff(has_ff, nq, nv, xa.T, xb.T)[0].T
+        return _fn.state_diff(has_ff, nq, nv, xa.T, xb.T).T
 
     def integrate(x, dx):
-        return _fn.lane_integrate(has_ff, nq, nv, x.T, dx.T).T
+        return _fn.state_integrate(has_ff, nq, nv, x.T, dx.T).T
     return diff, integrate
 
 
-def _calc_diff(problem, xs, us, feasible: bool):
-    """Derivatives, gaps and cost at the candidate (fddp.py:464-472)."""
+def _calc_diff(problem, xs, us, feasible):
+    """Derivatives, gaps and cost at the candidate (fddp.py:464-472); the
+    gaps are zero where ``feasible`` (a bool or a 0-d bool tensor)."""
     diff, _ = _state_ops(problem)
     derivs, dterm, xnexts, costs = problem.calc_diff_full(xs, us)
     cost = costs.sum()
     f0 = diff(xs[:1], problem.x0[None])
     frest = diff(xs[1:], xnexts)
     fs = torch.cat([f0, frest], 0)
-    if feasible:
+    if isinstance(feasible, torch.Tensor):
+        fs = torch.where(feasible, torch.zeros_like(fs), fs)
+    elif feasible:
         fs = torch.zeros_like(fs)
     return derivs, dterm, fs, cost
 
 
 def _backward_pass(derivs, dterm, fs, xreg, ureg, box_args=None,
                    probe=False):
+    """The generic Riccati backward pass (fddp.py:211-303): the pass of
+    ``_backward_loop``; without ``box_args`` through the op
+    ``torch.ops.crocoddyl_tpu_torch.backward_pass`` (its loop over time is
+    one node under ``torch.export``, as JAX's ``lax.scan`` is one
+    primitive).  Returns (Vx, Vxx, Qu, k, K, Quuk, failed), or only
+    ``failed`` with ``probe``."""
+    if box_args is not None:
+        return _backward_loop(derivs, dterm, fs, xreg, ureg, box_args, probe)
+    out = torch.ops.crocoddyl_tpu_torch.backward_pass(
+        *_ck.riccati_args(derivs, dterm, fs),
+        _ck.as_scalar(xreg, fs), _ck.as_scalar(ureg, fs))
+    return out[-1] if probe else out
+
+
+def _backward_op(*args):
+    *blocks, fs, xreg, ureg = args
+    return _backward_loop(*_ck.riccati_trees(*blocks), fs, xreg, ureg)
+
+
+_bp_op = torch.library.custom_op(
+    "crocoddyl_tpu_torch::backward_pass", _backward_op, mutates_args=(),
+    schema=_ck.RICCATI_SCHEMA)
+
+
+@_bp_op.register_fake
+def _(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg, ureg):
+    return _ck.riccati_outs(Fx.shape[0], fs.shape[1], Lu.shape[1], (), fs)
+
+
+def _backward_loop(derivs, dterm, fs, xreg, ureg, box_args=None,
+                   probe=False):
     """The generic Riccati backward pass (fddp.py:211-303), a loop over
     reversed time: the Jacobi-equilibrated Cholesky of Quu, and with
     ``box_args`` = (us, u_lb, u_ub, k_warm, use_box, qp_kw) the BoxQP gains
-    on the knots where ``use_box[t]`` (a host list: the knot has a finite
-    bound and the candidate is feasible, fddp.py:265-279).  The JAX pass
-    runs every knot's QP and selects; a knot outside ``use_box`` does not
-    read its QP, so it is not run.  Returns (Vx, Vxx, Qu, k, K, Quuk,
-    failed), or only ``failed`` with ``probe``."""
+    on the knots where ``use_box[t]`` (the knot has a finite bound and the
+    candidate is feasible, fddp.py:265-279).  ``use_box`` is a host list
+    or a (T,) bool tensor; the JAX pass runs every knot's QP and selects.
+    In eager mode a tensor is read once and a knot outside ``use_box``
+    does not run its QP, which it would not read; under export every knot
+    runs it and ``use_box`` selects, as in JAX.  ``xreg``/``ureg`` are
+    floats or 0-d tensors.  Returns (Vx, Vxx, Qu, k, K, Quuk, failed), or
+    only ``failed`` with ``probe``."""
     dt, dev = fs.dtype, fs.device
     ndx, T = fs.shape[-1], fs.shape[0] - 1
     nu = derivs.Lu.shape[-1]
-    xr, ur = float(xreg), float(ureg)
+    xr, ur = xreg, ureg
+    if box_args is not None:
+        us, u_lb, u_ub, k_warm, use_box, qp_kw = box_args
+        select = control.exporting() and isinstance(use_box, torch.Tensor)
+        if not select and isinstance(use_box, torch.Tensor):
+            use_box = use_box.tolist()
     eye = torch.eye(ndx, dtype=dt, device=dev)
     eye_u = torch.eye(nu, dtype=dt, device=dev)
     Vxx = VxxT = dterm.Lxx + xr * eye
@@ -274,14 +344,20 @@ def _backward_pass(derivs, dterm, fs, xreg, ureg, box_args=None,
         failed = failed | torch.isnan(L).any()
         K = cho_solve(L, Qxu.T / dscale[:, None]) / dscale[:, None]
         kvec = cho_solve(L, Qu / dscale) / dscale
-        if box_args is not None and box_args[4][t]:
-            us, u_lb, u_ub, k_warm, _, qp_kw = box_args
+        if box_args is not None and (select or use_box[t]):
             qsol = boxqp.solve(Quu, Qu, u_lb[t] - us[t], u_ub[t] - us[t],
                                k_warm[t], **qp_kw)
-            K = qsol.Hff_inv @ Qxu.T
-            kvec = -qsol.x
-            Qu = torch.where(qsol.free, Qu, torch.zeros_like(Qu))
-            failed = failed | qsol.failed
+            K_box = qsol.Hff_inv @ Qxu.T
+            Qu_box = torch.where(qsol.free, Qu, torch.zeros_like(Qu))
+            if select:
+                use = use_box[t]
+                K = torch.where(use, K_box, K)
+                kvec = torch.where(use, -qsol.x, kvec)
+                Qu = torch.where(use, Qu_box, Qu)
+                failed = failed | (use & qsol.failed)
+            else:
+                K, kvec, Qu = K_box, -qsol.x, Qu_box
+                failed = failed | qsol.failed
         Quuk = Quu @ kvec
         Vx = Qx + K.T @ Quuk - 2.0 * (K.T @ Qu)
         Vxx = Qxx - Qxu @ K
@@ -298,7 +374,8 @@ def _backward_pass(derivs, dterm, fs, xreg, ureg, box_args=None,
 
 
 def _forward_pass(problem, xs, us, k, K, fs, alphas, u_lb=None, u_ub=None):
-    """Trial rollouts at the step lengths ``alphas`` (fddp.py:310-355), the
+    """Trial rollouts at the step lengths ``alphas`` (a list or an (A,)
+    tensor; fddp.py:310-355), the
     trials as rows, through every segment in turn: each knot's nodes are
     evaluated for all trials at once (``ShootingProblem.knot_calc``: one
     plain lane primal for a lane node, the model's ``calc`` under vmap
@@ -307,8 +384,8 @@ def _forward_pass(problem, xs, us, k, K, fs, alphas, u_lb=None, u_ub=None):
     Returns (xs_try (A, T+1, nx), us_try (A, T, nu), cost (A,), failed
     (A,))."""
     diff, integrate = _state_ops(problem)
-    A = len(alphas)
-    al = torch.tensor(alphas, dtype=xs.dtype, device=xs.device)[:, None]
+    al = torch.as_tensor(alphas, dtype=xs.dtype, device=xs.device)[:, None]
+    A = al.shape[0]
     gap = al - 1.0
     xnext = problem.x0[None].expand(A, -1)
     cost = xs.new_zeros(A)
@@ -355,8 +432,8 @@ def _forward_pass_ms(problem, xs, us, k, K, fs, alphas, ms_chunk, u_lb=None,
     trials are those of ``_forward_pass``; the chunk-boundary mismatches
     become the next iteration's gaps."""
     diff, integrate = _state_ops(problem)
-    A, T = len(alphas), problem.T
-    al = torch.tensor(alphas, dtype=xs.dtype, device=xs.device)[:, None]
+    al = torch.as_tensor(alphas, dtype=xs.dtype, device=xs.device)[:, None]
+    A, T = al.shape[0], problem.T
     xs_try = xs.new_empty((A, T + 1, xs.shape[-1]))
     us_try = us.new_empty((A, T, us.shape[-1]))
     cost = xs.new_zeros(A)
@@ -416,11 +493,38 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
     as the JAX ``solve`` does (fddp.py:479-876).  ``u_lb``/``u_ub`` (or the
     segment's own ``u_lb``/``u_ub``) broadcast to (T, nu).  The problem and
     the warm start move to ``device`` (default: the CUDA device) in the
-    problem's dtype."""
+    problem's dtype.
+
+    Every decision is a tensor on the problem's device, taken by
+    ``control.while_loop`` and ``control.cond`` where JAX's program takes
+    it (fddp.py):
+
+    - the regularization ladder's retries, a loop on the probe's failure
+      flag (``while_loop`` at :649), and the redo of the full pass when the
+      regularization moved (:658), a ``cond``;
+    - the sequential line search, a loop over the index of α in a device
+      tensor of the step lengths, until a trial is accepted (:744); the
+      parallel search picks the first accepted row with ``argmax`` (:720);
+    - the iteration loop, on ``iter < maxiter & ~converged & ~diverged``
+      (:855), with the trace written at ``iter`` into (maxiter,) columns
+      (:781-795).
+
+    In eager mode each loop and branch reads its predicate once on the
+    host; under ``torch.export`` (``utils/aot.export_bytes``) they are
+    recorded, so the exported program decides on the device.  An
+    ``iter_callback`` runs on the host and only in eager mode."""
     s = settings
     why = _refusal(problem, s)
     if why is not None:
         raise ValueError(f"unsupported configuration for solve: {why}")
+    if control.exporting():
+        if s.iter_callback is not None:
+            raise ValueError("export: iter_callback is a host callback, "
+                             "which an exported program cannot record")
+        kind = _export_refusal(problem)
+        if kind is not None:
+            raise ValueError(f"export: torch.export cannot record {kind} "
+                             "in a solve; solve such a problem eagerly")
     dev = resolve_device(device)
     dt = problem.x0.dtype
     problem = cast(problem, dev, dt)
@@ -438,6 +542,9 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
     fscan_trials = use_fscan and s.ms_chunk == 0
     par_riccati = s.parallel_riccati and not s.box
 
+    def sc(v, dtype=dt):
+        return torch.full((), v, dtype=dtype, device=dev)
+
     if s.box:
         if u_lb is None:
             u_lb = getattr(seg, "u_lb", None)
@@ -446,8 +553,7 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
             raise ValueError("box solver requires control bounds (u_lb/u_ub)")
         u_lb = torch.as_tensor(u_lb, dtype=dt).to(dev).broadcast_to((T, nu))
         u_ub = torch.as_tensor(u_ub, dtype=dt).to(dev).broadcast_to((T, nu))
-        has_limits = (torch.isfinite(u_lb).any(1)
-                      | torch.isfinite(u_ub).any(1)).tolist()
+        has_limits = torch.isfinite(u_lb).any(1) | torch.isfinite(u_ub).any(1)
         qp_kw = dict(maxiter=s.qp_maxiter, th_acceptstep=s.qp_th_acceptstep,
                      th_grad=s.qp_th_grad, reg=s.qp_reg)
     bounds = (u_lb, u_ub) if s.box else (None, None)
@@ -456,12 +562,20 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
           else xs_init.to(device=dev, dtype=dt)).contiguous()
     us = (torch.zeros((T, nu), dtype=dt, device=dev) if us_init is None
           else us_init.to(device=dev, dtype=dt)).contiguous()
-    # the regularization lives on the host, in the problem's dtype, as the
-    # JAX loop keeps it in dt: the ladder and the schedule branch on it
-    reg0 = torch.tensor(s.regmin if reginit is None else reginit, dtype=dt)
-    regmax = torch.tensor(s.regmax, dtype=dt)
-    regmin = torch.tensor(s.regmin, dtype=dt)
-    alphas = s.alphas
+    # the regularization and the step lengths live on the device, in the
+    # problem's dtype, as the JAX loop keeps them in dt
+    reg0 = sc(s.regmin if reginit is None else reginit)
+    regmax, regmin = sc(s.regmax), sc(s.regmin)
+    alphas = torch.tensor(s.alphas, dtype=dt, device=dev)
+    A = s.n_alphas
+    # what the loops read of the problem (the stacked knots, the per-knot
+    # models, the kernels' descriptors on the card) is built out of them
+    if problem.on_lanes:
+        _fn.prepare(problem.knots, x0)
+    if fscan_trials:
+        _fn.prepare(seg, x0)
+    elif s.ms_chunk == 0:
+        problem._knot_list
 
     def up(r):
         return torch.minimum(r * s.regfactor, regmax)
@@ -485,8 +599,8 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
         else:
             box_args = None
             if s.box:
-                use_box = [h and c["feasible"] for h in has_limits]
-                box_args = (c["us"], u_lb, u_ub, c["k"], use_box, qp_kw)
+                box_args = (c["us"], u_lb, u_ub, c["k"],
+                            has_limits & c["feasible"], qp_kw)
 
             def bp(xr, ur, probe=False):
                 return _backward_pass(derivs, dterm, fs, xr, ur, box_args,
@@ -494,44 +608,41 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
 
         xreg = c["xreg"]
         res0 = bp(xreg, c["ureg"])
-        pend = bool(res0[-1]) and bool(xreg < regmax)
-        xr = up(xreg) if pend else xreg
-        while pend:
-            pend = bool(bp(xr, xr, probe=True)) and bool(xr < regmax)
-            if pend:
-                xr = up(xr)
-        # the redo predicate looks at xreg only (fddp.py:659)
-        res = bp(xr, xr) if bool(xr != xreg) else res0
-        diverged = c["diverged"] or bool(res[-1])
-        return fs, cost, res, xr, diverged
+        pend0 = res0[-1] & (xreg < regmax)
 
-    def trial_rollouts(c, fs_fwd, k, K, alphas_):
-        """[(xs_try, us_try, cost_try, failed)] at each step length: kernel
-        5 for the T running knots and the terminal node here, one launch a
-        trial, or the generic pass (multiple-shooting with ``ms_chunk``)
-        over all of them at once."""
+        def retry(rc):
+            xr, _ = rc
+            pend = bp(xr, xr, probe=True) & (xr < regmax)
+            return torch.where(pend, up(xr), xr), pend
+        xr, _ = control.while_loop(lambda rc: rc[1], retry,
+                                   (torch.where(pend0, up(xreg), xreg),
+                                    pend0))
+        # the redo predicate looks at xreg only (fddp.py:659)
+        res = control.cond(xr != xreg, lambda _: bp(xr, xr),
+                           lambda _: res0)
+        return fs, cost, res, xr, c["diverged"] | res[-1]
+
+    def trial_rows(c, fs_fwd, k, K, al):
+        """(xs_try, us_try, cost, failed) of the trials at the step lengths
+        ``al`` (A,) as rows: kernel 5 (one α) for the T running knots and
+        the terminal node here, or the generic pass (multiple-shooting with
+        ``ms_chunk``) over all of them at once."""
         if not fscan_trials:
             if s.ms_chunk > 0:
-                out = _forward_pass_ms(problem, c["xs"], c["us"], k, K,
-                                       fs_fwd, alphas_, s.ms_chunk, *bounds)
-            else:
-                out = _forward_pass(problem, c["xs"], c["us"], k, K, fs_fwd,
-                                    alphas_, *bounds)
-            return [tuple(o[i] for o in out) for i in range(len(alphas_))]
-        out = []
-        for alpha in alphas_:
-            xs_r, us_r, x_last, cost_r, failed = _fsc.trial_rollout_fused(
-                seg, x0, c["xs"], c["us"], k, K, fs_fwd, alpha)
-            xT = integrate(x_last[None], (alpha - 1.0) * fs_fwd[-1:])
-            cost_try = cost_r + terminal_calc(term, xT)[0]
-            xT = xT[0]
-            out.append((torch.cat([xs_r, xT[None]], 0), us_r, cost_try,
-                        failed | _bad(cost_try)))
-        return out
+                return _forward_pass_ms(problem, c["xs"], c["us"], k, K,
+                                        fs_fwd, al, s.ms_chunk, *bounds)
+            return _forward_pass(problem, c["xs"], c["us"], k, K, fs_fwd, al,
+                                 *bounds)
+        alpha = al[0]
+        xs_r, us_r, x_last, cost_r, failed = _fsc.trial_rollout_fused(
+            seg, x0, c["xs"], c["us"], k, K, fs_fwd, alpha)
+        xT = integrate(x_last[None], (alpha - 1.0) * fs_fwd[-1:])
+        cost_try = cost_r + terminal_calc(term, xT)[0]
+        return (torch.cat([xs_r, xT], 0)[None], us_r[None], cost_try[None],
+                (failed | _bad(cost_try))[None])
 
-    def judge(c, alpha, trial, fs, cost, Vxx, dg, dq):
+    def judge(c, alpha, xs_try, cost_try, failed, fs, cost, Vxx, dg, dq):
         """Acceptance of one trial (fddp.py:700-720): (accept, d0, d1)."""
-        xs_try, _, cost_try, failed = trial
         dV = cost - cost_try
         failed = failed | (cost_try > s.th_blowup * (1.0 + cost.abs()))
         if fd:
@@ -548,39 +659,56 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
             neg = (dVexp < 0) & (dV > s.th_acceptnegstep * dVexp)
             accept = pos | neg
         else:
-            accept = (dVexp >= 0) & ((d0 < s.th_grad) | (not c["feasible"])
+            accept = (dVexp >= 0) & ((d0 < s.th_grad) | ~c["feasible"]
                                      | (dV > s.th_acceptstep * dVexp))
         return accept & ~failed, d0, d1
 
     def line_search(c, fs, cost, res, dg, dq):
-        """The step (fddp.py:675-769): (accepted trial or None, steplength,
-        d0, d1).  The parallel search evaluates every α and takes the first
-        accepted; with none, steplength is the last α and d0/d1 are the
-        first trial's (fddp.py:722-727).  The kernel path runs the trials
-        one at a time and stops at the first accepted, with the same picks.
-        The sequential search stops at the first accepted; with none, d0/d1
-        are the last trial's (fddp.py:731-749)."""
+        """The step (fddp.py:675-769): (accepted, xs_try, us_try, cost_try,
+        steplength, d0, d1) of the accepted trial, or of the last one run
+        when none is (the caller keeps the candidate then).  The parallel
+        search evaluates every α and takes the first accepted; with none,
+        steplength is the last α and d0/d1 are the first trial's
+        (fddp.py:722-727).  The kernel path runs the trials one at a time
+        and stops at the first accepted, with the same picks.  The
+        sequential search stops at the first accepted; with none, d0/d1 are
+        the last trial's (fddp.py:731-749)."""
         Vx, Vxx, Qu, k, K, _, _ = res
         fs_fwd = fs if fd else torch.zeros_like(fs)
         if s.parallel_linesearch and not fscan_trials:
-            trials = trial_rollouts(c, fs_fwd, k, K, alphas)
-            judged = [judge(c, a, tr, fs, cost, Vxx, dg, dq)
-                      for a, tr in zip(alphas, trials)]
-            acc = torch.stack([torch.as_tensor(j[0]) for j in judged])
-            acc = acc.tolist()
-        else:
-            trials, judged, acc = [], [], []
-            for a in alphas:
-                trials += trial_rollouts(c, fs_fwd, k, K, [a])
-                judged.append(judge(c, a, trials[-1], fs, cost, Vxx, dg, dq))
-                acc.append(bool(judged[-1][0]))
-                if acc[-1]:
-                    break
-        if any(acc):
-            i = acc.index(True)
-            return trials[i], alphas[i], judged[i][1], judged[i][2]
-        j = judged[0] if s.parallel_linesearch else judged[-1]
-        return None, alphas[-1], j[1], j[2]
+            xs_t, us_t, cost_t, failed_t = trial_rows(c, fs_fwd, k, K, alphas)
+            judged = [judge(c, alphas[i], xs_t[i], cost_t[i], failed_t[i],
+                            fs, cost, Vxx, dg, dq) for i in range(A)]
+            acc, d0s, d1s = (torch.stack(j) for j in zip(*judged))
+            j = torch.argmax(acc.to(torch.int32))
+            any_acc = acc.any()
+            xs_j, us_j, cost_j, alpha_j, d0_j, d1_j = (
+                control.pick(a, j) for a in (xs_t, us_t, cost_t, alphas, d0s,
+                                             d1s))
+            return (any_acc, xs_j, us_j, cost_j,
+                    torch.where(any_acc, alpha_j, alphas[-1]), d0_j, d1_j)
+
+        def ls_body(lc):
+            i = lc[0]
+            alpha = control.pick(alphas, i)
+            xs_t, us_t, cost_t, failed_t = trial_rows(c, fs_fwd, k, K,
+                                                      alpha[None])
+            acc, d0, d1 = judge(c, alpha, xs_t[0], cost_t[0], failed_t[0],
+                                fs, cost, Vxx, dg, dq)
+            first = i == 0
+            return (i + 1, acc, xs_t[0], us_t[0], cost_t[0], d0, d1,
+                    torch.where(first, d0, lc[7]),
+                    torch.where(first, d1, lc[8]))
+        i, acc, xs_t, us_t, cost_t, d0, d1, d0f, d1f = control.while_loop(
+            lambda lc: (lc[0] < A) & ~lc[1], ls_body,
+            (torch.zeros((), dtype=torch.int64, device=dev),
+             torch.zeros((), dtype=torch.bool, device=dev),
+             torch.zeros_like(c["xs"]), torch.zeros_like(c["us"]))
+            + tuple(sc(0.0) for _ in range(5)))
+        if s.parallel_linesearch:
+            d0, d1 = torch.where(acc, d0, d0f), torch.where(acc, d1, d1f)
+        return (acc, xs_t, us_t, cost_t,
+                control.pick(alphas, torch.clamp(i - 1, max=A - 1)), d0, d1)
 
     def iteration(c):
         """compute_direction, expected improvement, line search,
@@ -595,93 +723,84 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
         if fd:
             dg = dg - (Vx * fs).sum()
             dq = dq + (fs * torch.einsum("tij,tj->ti", Vxx, fs)).sum()
-        trial, steplength, d0, d1 = line_search(c, fs, cost, res, dg, dq)
-        xs_n, us_n, cost_n = ((c["xs"], c["us"], cost) if trial is None
-                              else trial[:3])
+        acc, xs_t, us_t, cost_t, steplength, d0, d1 = line_search(
+            c, fs, cost, res, dg, dq)
+        xs_n = torch.where(acc, xs_t, c["xs"])
+        us_n = torch.where(acc, us_t, c["us"])
+        cost_n = torch.where(acc, cost_t, cost)
         feasible, was_feasible = c["feasible"], c["was_feasible"]
-        if trial is not None:
-            was_feasible = feasible
+        if not fd:
+            feas_new = torch.ones_like(feasible)
+        elif s.ms_chunk > 0:
             # a multiple-shooting step always leaves chunk-boundary
             # defects: its candidate is never feasible (fddp.py:756-764)
-            feasible = ((c["was_feasible"] or steplength == 1.0)
-                        and s.ms_chunk == 0 if fd else True)
+            feas_new = torch.zeros_like(feasible)
+        else:
+            feas_new = was_feasible | (steplength == 1.0)
+        was_feasible = torch.where(acc, feasible, was_feasible)
+        feasible = torch.where(acc, feas_new, feasible)
         # regularization schedule (fddp.py:771-779)
         inc = steplength <= s.th_stepinc
-        if steplength > s.th_stepdec:
-            xreg = torch.maximum(xreg / s.regfactor, regmin)
-        if inc:
-            xreg = up(xreg)
-        diverged = diverged or (inc and bool(xreg >= regmax))
+        xreg = torch.where(steplength > s.th_stepdec,
+                           torch.maximum(xreg / s.regfactor, regmin), xreg)
+        xreg = torch.where(inc, up(xreg), xreg)
+        diverged = diverged | (inc & (xreg >= regmax))
         stop = (Qu ** 2).sum()
-        c = dict(xs=xs_n, us=us_n, feasible=feasible,
-                 was_feasible=was_feasible, xreg=xreg, ureg=xreg,
+        it = c["iter"]
+        n = dict(c)
+        n.update(xs=xs_n, us=us_n, feasible=feasible,
+                 was_feasible=was_feasible, xreg=xreg, ureg=xreg.clone(),
                  cost=cost_n, steplength=steplength, d0=d0, d1=d1, stop=stop,
-                 k=k, iter=c["iter"], diverged=diverged,
-                 trace=c["trace"])
+                 k=k, diverged=diverged, iter=it + 1)
         if s.record_trace:
-            c["trace"].append((cost_n, stop, -d1, xreg, xreg, steplength,
-                               feasible))
+            at = torch.arange(s.maxiter, device=dev) == it
+            n["trace"] = tuple(
+                torch.where(at, v, col) for v, col in zip(
+                    (cost_n, stop, -d1, xreg, xreg, steplength, feasible),
+                    c["trace"]))
         if s.iter_callback is not None:
-            s.iter_callback(c["iter"], cost_n, xs_n)
+            s.iter_callback(it, cost_n, xs_n)
         if s.ms_chunk > 0:
             # converged once the gaps contract too (fddp.py:807-812)
-            c["converged"] = (bool(stop < s.th_stop)
-                              and bool(fs.abs().max() < s.th_gaptol))
+            n["converged"] = ((stop < s.th_stop)
+                              & (fs.abs().max() < s.th_gaptol))
         else:
-            c["converged"] = was_feasible and bool(stop < s.th_stop)
-        c["iter"] += 1
-        return c, (fs, res)
+            n["converged"] = was_feasible & (stop < s.th_stop)
+        return n, (fs, res)
 
-    c = dict(xs=xs, us=us, feasible=bool(is_feasible), was_feasible=False,
-             xreg=reg0, ureg=reg0, cost=torch.zeros((), dtype=dt, device=dev),
-             steplength=1.0, d0=torch.zeros((), dtype=dt, device=dev),
-             d1=torch.zeros((), dtype=dt, device=dev),
-             stop=torch.full((), float("inf"), dtype=dt, device=dev),
-             k=torch.zeros((T, nu), dtype=dt, device=dev), iter=0,
-             converged=False, diverged=False, trace=[])
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    c = dict(xs=xs, us=us,
+             feasible=torch.as_tensor(is_feasible, dtype=torch.bool).to(dev),
+             was_feasible=false, xreg=reg0, ureg=reg0.clone(), cost=sc(0.0),
+             steplength=sc(1.0), d0=sc(0.0), d1=sc(0.0),
+             stop=sc(float("inf")),
+             k=torch.zeros((T, nu), dtype=dt, device=dev),
+             iter=torch.zeros((), dtype=torch.int32, device=dev),
+             converged=false, diverged=false.clone())
+    if s.record_trace:
+        nan = torch.full((s.maxiter,), float("nan"), dtype=dt, device=dev)
+        c["trace"] = tuple(nan.clone() for _ in range(6)) + (
+            torch.zeros(s.maxiter, dtype=torch.bool, device=dev),)
     if s.maxiter == 1:
         # the MPC replan: the direction fields are the pre-step candidate's
         c, (fs, res) = iteration(c)
         cost = c["cost"]
     else:
-        while (c["iter"] < s.maxiter and not c["converged"]
-               and not c["diverged"]):
-            c, _ = iteration(c)
+        c = control.while_loop(
+            lambda c: ((c["iter"] < s.maxiter) & ~c["converged"]
+                       & ~c["diverged"]),
+            lambda c: iteration(c)[0], c)
         # the direction at the returned trajectory; its ladder must not
         # overwrite the loop's xreg/ureg/diverged (fddp.py:857-863)
         fs, cost, res, _, _ = compute_direction(c)
     Vx, Vxx, Qu, k, K, _, _ = res
-
-    def sc(v, dtype=dt):
-        return torch.as_tensor(v, dtype=dtype).to(dev)
     return Solution(
         xs=c["xs"], us=c["us"], K=K, k=k, Vx=Vx, Vxx=Vxx, Qu=Qu, fs=fs,
-        cost=cost, stop=c["stop"], xreg=sc(c["xreg"]), ureg=sc(c["ureg"]),
-        steplength=sc(c["steplength"]), d0=c["d0"], d1=c["d1"],
-        iter=sc(c["iter"], torch.int32),
-        is_feasible=sc(c["feasible"], torch.bool),
-        converged=sc(c["converged"], torch.bool),
-        diverged=sc(c["diverged"], torch.bool),
-        trace=_trace(c["trace"], s.maxiter, dt, dev) if s.record_trace
-        else None)
-
-
-def _trace(rows, maxiter, dt, dev) -> Trace:
-    """The recorded rows (cost, stop, grad, xreg, ureg, steplength,
-    feasible) as a Trace of (maxiter,) tensors, NaN (False) past the last
-    iteration (fddp.py:524-530, 781-795)."""
-    cols = []
-    for i, name in enumerate(("cost", "stop", "grad", "xreg", "ureg",
-                              "steplength", "feasible")):
-        kind = torch.bool if name == "feasible" else dt
-        col = (torch.zeros(maxiter, dtype=kind, device=dev)
-               if kind == torch.bool else
-               torch.full((maxiter,), float("nan"), dtype=dt, device=dev))
-        if rows:
-            col[:len(rows)] = torch.stack([
-                torch.as_tensor(r[i], dtype=kind).to(dev) for r in rows])
-        cols.append(col)
-    return Trace(*cols)
+        cost=cost, stop=c["stop"], xreg=c["xreg"], ureg=c["ureg"],
+        steplength=c["steplength"], d0=c["d0"], d1=c["d1"], iter=c["iter"],
+        is_feasible=c["feasible"], converged=c["converged"],
+        diverged=c["diverged"],
+        trace=Trace(*c["trace"]) if s.record_trace else None)
 
 
 def polish(problem, solution: Solution, iters: int = 2,

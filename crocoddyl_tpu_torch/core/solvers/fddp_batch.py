@@ -8,12 +8,14 @@ The data parallelism is the trailing lane axis of three kernels:
 - the Riccati backward pass (``ops/fused_scans.riccati_backward_lanes``);
 - the trial rollout (``ops/fused_scans.trial_rollout_lanes``).
 
-The JAX version is one jitted program with ``while_loop``s; here the
-regularization ladder and the line search are Python loops with one host
-sync per probe or trial.  The decisions are the same: same candidates,
-same accepted steps, same regularization schedule.  Scope: feasibility-
-driven FDDP, no control bounds, one segment whose structure the node
-kernel supports, sequential line search, no trace.
+As in the JAX version, one jitted program with ``while_loop``s, every
+decision is a (B,) tensor on the device and the loops run on
+``control.while_loop``/``control.cond``: eagerly, one host read of each
+predicate, or recorded by ``torch.export`` (``utils/aot.export_bytes``).
+The decisions are the JAX ones: same candidates, same accepted steps, same
+regularization schedule.  Scope: feasibility-driven FDDP, no control
+bounds, one segment whose structure the node kernel supports, sequential
+line search, no trace.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ...dynamics.model import JointType
 from ...ops import fused_node as _fn
 from ...ops import fused_scans as _fsc
 from ...utils.struct import tree_map
+from . import control
 from .fddp import Solution, SolverSettings, cast, resolve_device
 
 
@@ -52,7 +55,14 @@ def solve_batch(problem, x0s, xs_init: Optional[torch.Tensor] = None,
     shared or per-problem warm start.  Returns a Solution whose leaves carry
     a leading B axis.  Semantics == JAX ``solve_batch``.  The problem, x0s
     and the warm start move to ``device`` (default: the CUDA device) in the
-    dtype of x0s."""
+    dtype of x0s.
+
+    The decisions are (B,) tensors on the device, taken by
+    ``control.while_loop``/``control.cond`` where JAX's program takes them
+    (fddp_batch.py): the ladder's retries while some lane's probe failed
+    (:179) and the redo of the full pass where a lane's regularization
+    moved; the α ladder while some active lane has accepted no step (:250);
+    the iteration loop while some lane is active (:293)."""
     s = settings
     if not supports(problem, s):
         raise ValueError("unsupported configuration for solve_batch")
@@ -82,8 +92,10 @@ def solve_batch(problem, x0s, xs_init: Optional[torch.Tensor] = None,
     # the node-kernel launch covers T running knots + the terminal knot as
     # a dt=0 node (core/problem.py:171-184 convention)
     knots = problem.knots
-    term = tree_map(lambda l: l[T], knots)
-    term_lanes = _fn.lane_params(tree_map(lambda l: l[None], term), B)
+    # the kernels' descriptors on the card, built once outside the loops
+    _fn.prepare(knots, x0s)
+    _fn.prepare(seg, x0s)
+    term = tree_map(lambda l: l[T:T + 1], knots)
     u_term = torch.zeros((1, nu, B), dtype=dt, device=dev)
 
     def nodes_of(a_l):
@@ -98,9 +110,10 @@ def solve_batch(problem, x0s, xs_init: Optional[torch.Tensor] = None,
         return torch.full((B,), v, dtype=dtype, device=dev)
 
     reg0 = full(s.regmin if reginit is None else reginit)
+    alphas = torch.tensor(s.alphas, dtype=dt, device=dev)
 
     def lane_diff(xa_n, xb_n):
-        return _fn._lane_state_diff(has_ff, nq, nv, xa_n, xb_n)[0]
+        return _fn.state_diff(has_ff, nq, nv, xa_n, xb_n)
 
     def calc_diff(xs_l, us_l, feasible):
         u_all = torch.cat([us_l, u_term], 0)
@@ -135,22 +148,22 @@ def solve_batch(problem, x0s, xs_init: Optional[torch.Tensor] = None,
         # per probe) and re-run the full pass.  pend0 is not masked by
         # `active`, as in fddp_batch.py:165.
         res0 = backward(xreg, ureg)
-        pend = res0[-1] & (xreg < s.regmax)
-        xr = torch.where(pend, torch.clamp(xreg * s.regfactor, max=s.regmax),
-                         xreg)
-        ur = xr
-        while bool(pend.any()):
-            failed = backward(xr, ur)[-1] & pend
-            pend = failed & (xr < s.regmax)
-            xr = torch.where(pend, torch.clamp(xr * s.regfactor,
-                                               max=s.regmax), xr)
-            ur = xr
+        pend0 = res0[-1] & (xreg < s.regmax)
+
+        def retry(rc):
+            xr, pend = rc
+            pend = backward(xr, xr)[-1] & pend & (xr < s.regmax)
+            return (torch.where(pend, torch.clamp(xr * s.regfactor,
+                                                  max=s.regmax), xr), pend)
+        xr, _ = control.while_loop(
+            lambda rc: rc[1].any(), retry,
+            (torch.where(pend0, torch.clamp(xreg * s.regfactor,
+                                            max=s.regmax), xreg), pend0))
         xreg_m = torch.where(active, xr, xreg)
-        ureg_m = torch.where(active, ur, ureg)
-        if bool(((xreg_m != xreg) | (ureg_m != ureg)).any()):
-            res = backward(xreg_m, ureg_m)
-        else:
-            res = res0
+        ureg_m = torch.where(active, xr, ureg)
+        res = control.cond(((xreg_m != xreg) | (ureg_m != ureg)).any(),
+                           lambda _: backward(xreg_m, ureg_m),
+                           lambda _: res0)
         xreg, ureg = xreg_m, ureg_m
         Vx_l, Vxx_l, Qu_l, k_l, K_l, Quuk_l, failed = res
         div = div | (active & failed)
@@ -164,12 +177,12 @@ def solve_batch(problem, x0s, xs_init: Optional[torch.Tensor] = None,
             xs_r, us_r, x_last, cost_r, fail_t = _fsc.trial_rollout_lanes(
                 seg, x0_l, xs_l[:-1], us_l, k_l, K_l, fs_l[:-1], fs_l[-1],
                 alpha)
-            xT = _fn.lane_integrate(has_ff, nq, nv, x_last,
+            xT = _fn.state_integrate(has_ff, nq, nv, x_last,
                                     (alpha - 1.0) * fs_l[-1])
             # terminal trial cost: the port's lane primal on the dt=0
             # terminal knot (plain tensor code, as the JAX package computes
             # it outside any kernel)
-            cterm = _fn.lane_calc_primal(term_lanes, xT, u_term[0])[1]
+            cterm = _fn.calc_primal(term, xT, u_term[0])[1]
             cost_try = cost_r + cterm
             fail_t = fail_t | ~(cost_try.abs() < 1e30)
             xs_try = torch.cat([xs_r, xT[None]], 0)
@@ -187,21 +200,24 @@ def solve_batch(problem, x0s, xs_init: Optional[torch.Tensor] = None,
 
         # sequential line search: a global alpha ladder with per-lane
         # acceptance (each lane takes its own first acceptable alpha)
-        acc = torch.zeros(B, dtype=torch.bool, device=dev)
-        xs_a, us_a, cost_a = xs_l, us_l, cost
-        step_a, d0_a, d1_a = full(s.alphas[-1]), d0_o, d1_o
-        for alpha in s.alphas:
-            if not bool((~acc & active).any()):
-                break
+        def ls_body(lc):
+            i, acc, xs_a, us_a, cost_a, step_a, d0_a, d1_a = lc
+            alpha = control.pick(alphas, i)
             xs_try, us_try, cost_try, accept, d0, d1 = trial(alpha)
             take = ~acc & accept & active
-            xs_a = torch.where(take[None, None], xs_try, xs_a)
-            us_a = torch.where(take[None, None], us_try, us_a)
-            cost_a = torch.where(take, cost_try, cost_a)
-            step_a = torch.where(take, full(alpha), step_a)
-            d0_a = torch.where(take, d0, d0_a)
-            d1_a = torch.where(take, d1, d1_a)
-            acc = acc | accept
+            return (i + 1, acc | accept,
+                    torch.where(take[None, None], xs_try, xs_a),
+                    torch.where(take[None, None], us_try, us_a),
+                    torch.where(take, cost_try, cost_a),
+                    torch.where(take, alpha, step_a),
+                    torch.where(take, d0, d0_a), torch.where(take, d1, d1_a))
+        _, acc, xs_a, us_a, cost_a, step_a, d0_a, d1_a = control.while_loop(
+            lambda lc: (lc[0] < len(alphas)) & (~lc[1] & active).any(),
+            ls_body,
+            (torch.zeros((), dtype=torch.int64, device=dev),
+             torch.zeros(B, dtype=torch.bool, device=dev), xs_l.clone(),
+             us_l.clone(), cost.clone(), full(s.alphas[-1]), d0_o.clone(),
+             d1_o.clone()))
 
         upd = acc & active
         xs_l = torch.where(upd[None, None], xs_a, xs_l)
@@ -233,14 +249,15 @@ def solve_batch(problem, x0s, xs_init: Optional[torch.Tensor] = None,
         return (xs_l, us_l, feasible, was_feasible, xreg, ureg, cost,
                 steplength, d0_o, d1_o, stop_o, it_b, conv, div, active)
 
-    c = (xs_l0, us_l0, full(bool(is_feasible), torch.bool),
-         full(False, torch.bool), reg0, reg0, full(0.0), full(1.0),
-         full(0.0), full(0.0), full(float("inf")),
+    c = (xs_l0, us_l0,
+         torch.as_tensor(is_feasible, dtype=torch.bool).to(dev).expand(B)
+         .clone(), full(False, torch.bool), reg0, reg0.clone(), full(0.0),
+         full(1.0), full(0.0), full(0.0), full(float("inf")),
          full(0, torch.int32), full(False, torch.bool),
          full(False, torch.bool), full(True, torch.bool))
     c = iteration(c)
-    while s.maxiter > 1 and bool(c[-1].any()):
-        c = iteration(c)
+    if s.maxiter > 1:
+        c = control.while_loop(lambda c: c[-1].any(), iteration, c)
     (xs_l, us_l, feasible, _, xreg, ureg, cost, steplength, d0_o, d1_o,
      stop_o, it_b, conv, div, _) = c
 

@@ -19,8 +19,9 @@
 // took longer (more threads only lengthen the five barriers of a step).
 // Inputs are contiguous single-problem arrays (T, ...): riccati_cta reads
 // them with element stride 1 and time stride = the step's element count,
-// problem index 0 of 1.  xreg and ureg
-// come by value; ``failed`` is one byte.
+// problem index 0 of 1.  xreg and ureg are read from device memory (two
+// 0-d tensors, so a solve's regularization never goes through the host);
+// ``failed`` is one byte.
 #include "riccati_pass.cuh"
 
 #ifdef __CUDACC__
@@ -35,9 +36,11 @@ __global__ void __launch_bounds__(kRiccatiB1Threads)
 riccati_b1_kernel(int Tn, int ndx, int nu, LaneStrides S, const T* Fx,
                   const T* Fu, const T* Lx, const T* Lu, const T* Lxx,
                   const T* Lxu, const T* Luu, const T* LxT, const T* LxxT,
-                  const T* fs, T xreg, T ureg, T* Vx_o, T* Vxx_o, T* Qu_o,
+                  const T* fs, const T* xreg_p, const T* ureg_p, T* Vx_o,
+                  T* Vxx_o, T* Qu_o,
                   T* k_o, T* K_o, T* Quuk_o, unsigned char* failed_o) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const T xreg = *xreg_p, ureg = *ureg_p;
   riccati_cta<T, NU>(BlockCta{}, AsyncPipe{}, Tn, 1, 0, ndx, nu, S, Fx, Fu, Lx,
                  Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg, ureg, Vx_o, Vxx_o,
                  Qu_o, k_o, K_o, Quuk_o, failed_o,
@@ -48,7 +51,7 @@ template <class T, int NU>
 int launch_riccati_b1(int Tn, int ndx, int nu, const T* Fx, const T* Fu,
                       const T* Lx, const T* Lu, const T* Lxx, const T* Lxu,
                       const T* Luu, const T* LxT, const T* LxxT, const T* fs,
-                      double xreg, double ureg, T* Vx, T* Vxx, T* Qu, T* k,
+                      const T* xreg, const T* ureg, T* Vx, T* Vxx, T* Qu, T* k,
                       T* K, T* Quuk, unsigned char* failed, void* stream) {
   if (nu > kRiccatiMaxNu || ndx + 1 > 64) return (int)cudaErrorInvalidValue;
   size_t smem = riccati_smem(ndx, nu, sizeof(T));
@@ -67,8 +70,8 @@ int launch_riccati_b1(int Tn, int ndx, int nu, const T* Fx, const T* Fu,
     S.es[k] = 1;
   }
   riccati_b1_kernel<T, NU><<<1, kRiccatiB1Threads, smem, (cudaStream_t)stream>>>(
-      Tn, ndx, nu, S, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, T(xreg),
-      T(ureg), Vx, Vxx, Qu, k, K, Quuk, failed);
+      Tn, ndx, nu, S, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg,
+      ureg, Vx, Vxx, Qu, k, K, Quuk, failed);
   return (int)cudaGetLastError();
 }
 
@@ -78,7 +81,8 @@ int launch_riccati_b1(int Tn, int ndx, int nu, const T* Fx, const T* Fu,
   extern "C" int NAME(int Tn, int ndx, int nu, const T* Fx, const T* Fu,     \
                       const T* Lx, const T* Lu, const T* Lxx, const T* Lxu,  \
                       const T* Luu, const T* LxT, const T* LxxT,             \
-                      const T* fs, double xreg, double ureg, T* Vx, T* Vxx,  \
+                      const T* fs, const T* xreg, const T* ureg, T* Vx,      \
+                      T* Vxx,                                                \
                       T* Qu, T* k, T* K, T* Quuk, unsigned char* failed,     \
                       void* stream) {                                        \
     auto launch = croc::riccati_nu_pad(nu) == 12                             \

@@ -6,7 +6,7 @@
 // step is rollout_step.cuh's, the same as kernel 3's (rollout_kernel.cu):
 // x_try = xnext ⊕ (α − 1)·f_t, u_try = u_t − α·k_t − K_t·(x_try ⊖ x_t), then
 // the node primal, the cost sum and the failure flag; the terminal node
-// stays with the caller.
+// stays with the caller.  α is read from device memory (a 0-d tensor).
 //
 // Bound on this card: latency of one chain.  The T = 108 node primals are
 // dependent, and each is a chain of small dependent operations; the pass
@@ -31,9 +31,10 @@ template <class T>
 __global__ void __launch_bounds__(32)
 rollout_b1_kernel(int Tn, int nmeta, int nrobot, int ws, const int* meta,
                   const T* robot, const T* par, const T* x0, const T* xs,
-                  const T* us, const T* k, const T* K, const T* fs, T alpha,
-                  T* xs_try, T* us_try, T* x_last, T* cost,
+                  const T* us, const T* k, const T* K, const T* fs,
+                  const T* alpha_p, T* xs_try, T* us_try, T* x_last, T* cost,
                   unsigned char* failed) {
+  const T alpha = *alpha_p;  // the step length, from device memory
   rollout_cta<T, 1>(Tn, 1, nmeta, nrobot, ws, meta, robot, par, x0, xs, us,
                     k, K, fs, alpha, xs_try, us_try, x_last, cost, failed);
 }
@@ -42,7 +43,7 @@ template <class T>
 int launch_rollout_b1(int Tn, int nmeta, int nrobot, int P, int ws,
                       const int* meta, const T* robot, const T* par,
                       const T* x0, const T* xs, const T* us, const T* k,
-                      const T* K, const T* fs, double alpha, T* xs_try,
+                      const T* K, const T* fs, const T* alpha, T* xs_try,
                       T* us_try, T* x_last, T* cost, unsigned char* failed,
                       void* stream) {
   const int smem = (int)rollout_smem<T>(nmeta, nrobot, P, ws, 1);
@@ -54,7 +55,7 @@ int launch_rollout_b1(int Tn, int nmeta, int nrobot, int P, int ws,
   }
   rollout_b1_kernel<T><<<1, 32, smem, (cudaStream_t)stream>>>(
       Tn, nmeta, nrobot, ws, meta, robot, par, x0, xs, us, k, K, fs,
-      T(alpha), xs_try, us_try, x_last, cost, failed);
+      alpha, xs_try, us_try, x_last, cost, failed);
   return (int)cudaGetLastError();
 }
 
@@ -64,7 +65,7 @@ int launch_rollout_b1(int Tn, int nmeta, int nrobot, int P, int ws,
   extern "C" int NAME(int Tn, int nmeta, int nrobot, int P, int ws,          \
                       const int* meta, const T* robot, const T* par,         \
                       const T* x0, const T* xs, const T* us, const T* k,     \
-                      const T* K, const T* fs, double alpha, T* xs_try,      \
+                      const T* K, const T* fs, const T* alpha, T* xs_try,      \
                       T* us_try, T* x_last, T* cost, unsigned char* failed,  \
                       void* stream) {                                        \
     return croc::launch_rollout_b1<T>(Tn, nmeta, nrobot, P, ws, meta, robot, \

@@ -5,7 +5,8 @@
 // Pallas kernel whose grid steps over t with the rollout state in VMEM
 // scratch).  The step is rollout_step.cuh's: x_try = xnext ⊕ (α − 1)·f_t,
 // u_try = u_t − α·k_t − K_t·(x_try ⊖ x_t), then the node primal, the cost
-// sum and the failure flag.
+// sum and the failure flag.  α is read from device memory (a 0-d tensor),
+// so the line search's step length never goes through the host.
 //
 // Bound on this card: latency.  The T steps of a problem are a dependent
 // chain, and each step's node primal is a chain of small dependent
@@ -46,9 +47,10 @@ template <class T>
 __global__ void __launch_bounds__(32 * kRolloutWarps)
 rollout_kernel(int Tn, int B, int nmeta, int nrobot, int ws, const int* meta,
                const T* robot, const T* par, const T* x0, const T* xs,
-               const T* us, const T* k, const T* K, const T* fs, T alpha,
-               T* xs_try, T* us_try, T* x_last, T* cost,
+               const T* us, const T* k, const T* K, const T* fs,
+               const T* alpha_p, T* xs_try, T* us_try, T* x_last, T* cost,
                unsigned char* failed) {
+  const T alpha = *alpha_p;  // the step length, from device memory
   rollout_cta<T, kRolloutWarps>(Tn, B, nmeta, nrobot, ws, meta, robot, par,
                                 x0, xs, us, k, K, fs, alpha, xs_try, us_try,
                                 x_last, cost, failed);
@@ -66,7 +68,7 @@ template <class T>
 int launch_rollout(int Tn, int B, int nmeta, int nrobot, int P, int ws,
                    const int* meta, const T* robot, const T* par, const T* x0,
                    const T* xs, const T* us, const T* k, const T* K,
-                   const T* fs, double alpha, T* xs_try, T* us_try,
+                   const T* fs, const T* alpha, T* xs_try, T* us_try,
                    T* x_last, T* cost, unsigned char* failed, void* stream) {
   int shape[3];
   rollout_shape<T>(B, nmeta, nrobot, P, ws, shape);
@@ -78,7 +80,7 @@ int launch_rollout(int Tn, int B, int nmeta, int nrobot, int P, int ws,
   }
   rollout_kernel<T><<<shape[0], shape[1], shape[2], (cudaStream_t)stream>>>(
       Tn, B, nmeta, nrobot, ws, meta, robot, par, x0, xs, us, k, K, fs,
-      T(alpha), xs_try, us_try, x_last, cost, failed);
+      alpha, xs_try, us_try, x_last, cost, failed);
   return (int)cudaGetLastError();
 }
 
@@ -88,7 +90,7 @@ int launch_rollout(int Tn, int B, int nmeta, int nrobot, int P, int ws,
   extern "C" int NAME(int Tn, int B, int nmeta, int nrobot, int P, int ws,   \
                       const int* meta, const T* robot, const T* par,         \
                       const T* x0, const T* xs, const T* us, const T* k,     \
-                      const T* K, const T* fs, double alpha, T* xs_try,      \
+                      const T* K, const T* fs, const T* alpha, T* xs_try,      \
                       T* us_try, T* x_last, T* cost, unsigned char* failed,  \
                       void* stream) {                                        \
     return croc::launch_rollout<T>(Tn, B, nmeta, nrobot, P, ws, meta, robot, \

@@ -7,16 +7,28 @@ linked into one shared library with a plain C interface
 keeps processes from building at once.  Nothing here touches nvcc or the
 library at import time.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current CUDA stream, raises
-if the launch reports an error, and adds one to its ``launches`` count.  The node and rollout kernels read a
-descriptor built once per stacked segment from the dataclasses (see
-``descriptor``); its layout is mirrored in csrc/node_math.cuh.
-
 Kernels: node linearization (``node_calc_both``), the batched Riccati pass
 (``riccati_backward``) and trial rollout (``trial_rollout``) of the batch
 lane, and the single-problem Riccati pass (``riccati_backward_b1``) and
 trial rollout (``trial_rollout_b1``) of the b=1 lane.
+
+Each kernel is a ``torch.library`` custom op of the namespace
+``crocoddyl_tpu_torch`` (``torch.ops.crocoddyl_tpu_torch.<name>``), whose
+arguments are tensors and ints only, with a fake implementation giving its
+outputs' shapes and dtypes: ``torch.export`` records one node per launch,
+and the exported program carries the node and rollout kernels' descriptor
+(``meta``, ``robot``, ``par``: built once per stacked segment from the
+dataclasses, see ``descriptor``; layout mirrored in csrc/node_math.cuh).
+The scalars a solve decides (the step length α of kernels 3 and 5, the
+regularization of kernels 2 and 4) are tensors on the device, which the
+kernels read there.  The CUDA implementation checks device, dtype, shape
+and contiguity, allocates its outputs with ``torch.empty``, launches on
+the current CUDA stream, raises if the launch reports an error, and adds
+one to the ``launches`` count of its wrapper (the functions of the same
+name here, which take the port's dataclasses).  The Riccati ops' CPU
+implementation is their plain version (registered by ops/fused_scans.py);
+the node and rollout ops have none: on the CPU their callers take the plain
+versions, which read the dataclasses themselves.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import time
 import numpy as np
 import torch
 
+from ..core.solvers import control
 from ..dynamics.algorithms import _tree_meta
 from ..dynamics.model import JointType
 
@@ -85,7 +98,7 @@ def build(verbose: bool = False) -> float:
             if not os.path.exists(so):
                 _build_log = _compile(so, verbose)
         lib = ctypes.CDLL(so)
-        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        P, I = ctypes.c_void_p, ctypes.c_int
         for t in ("f32", "f64"):
             fn = getattr(lib, f"croc_riccati_{t}")
             fn.argtypes = [I, I, I, I] + [P] * 20 + [P]
@@ -97,16 +110,16 @@ def build(verbose: bool = False) -> float:
             fn.argtypes = [I] * 4 + [P]
             fn.restype = I
             fn = getattr(lib, f"croc_rollout_{t}")
-            fn.argtypes = [I] * 6 + [P] * 9 + [D] + [P] * 5 + [P]
+            fn.argtypes = [I] * 6 + [P] * 15 + [P]
             fn.restype = I
             fn = getattr(lib, f"croc_rollout_{t}_shape")
             fn.argtypes = [I] * 5 + [P]
             fn.restype = None
             fn = getattr(lib, f"croc_riccati_b1_{t}")
-            fn.argtypes = [I, I, I] + [P] * 10 + [D, D] + [P] * 7 + [P]
+            fn.argtypes = [I, I, I] + [P] * 19 + [P]
             fn.restype = I
             fn = getattr(lib, f"croc_rollout_b1_{t}")
-            fn.argtypes = [I] * 5 + [P] * 9 + [D] + [P] * 5 + [P]
+            fn.argtypes = [I] * 5 + [P] * 15 + [P]
             fn.restype = I
         lib.croc_riccati_shape.argtypes = [I] * 4 + [P]
         lib.croc_riccati_shape.restype = None
@@ -208,6 +221,14 @@ def _lane_strides(name, key, a, timed):
     return (st[0] if timed else 0), st[-2]
 
 
+def _custom_op(name, impl, schema):
+    """The op ``crocoddyl_tpu_torch::<name>`` with ``impl`` as its CUDA
+    implementation."""
+    return torch.library.custom_op(f"crocoddyl_tpu_torch::{name}", impl,
+                                   mutates_args=(), device_types="cuda",
+                                   schema=schema)
+
+
 # ---------------------------------------------------------------------------
 # Kernel 2: Riccati backward pass
 # ---------------------------------------------------------------------------
@@ -223,16 +244,17 @@ def _riccati_dims(name, ndx, nu):
                          f"and ndx <= {RICCATI_MAX_NDX}, got {nu}, {ndx}")
 
 
-def riccati_backward(derivs_l, dterm_l, fs_l, xreg, ureg):
-    """CUDA twin of fused_scans.riccati_backward_lanes_plain."""
-    T, ndx = derivs_l.Fx.shape[0], fs_l.shape[1]
-    nu, B = derivs_l.Lu.shape[1], fs_l.shape[-1]
-    dt, dev = fs_l.dtype, fs_l.device
+def riccati_backward_op(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg,
+                        ureg):
+    """Kernel 2's CUDA implementation (the op ``riccati_backward``): the
+    leaves of derivs_l and dterm_l, fs_l, and xreg/ureg (B,) on the
+    device."""
+    T, ndx = Fx.shape[0], fs.shape[1]
+    nu, B = Lu.shape[1], fs.shape[-1]
+    dt, dev = fs.dtype, fs.device
     _riccati_dims("riccati_backward", ndx, nu)
-    d = derivs_l
-    ins = dict(Fx=d.Fx, Fu=d.Fu, Lx=d.Lx, Lu=d.Lu, Lxx=d.Lxx, Lxu=d.Lxu,
-               Luu=d.Luu, LxT=dterm_l.Lx, LxxT=dterm_l.Lxx, fs=fs_l,
-               xreg=xreg, ureg=ureg)
+    ins = dict(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu, Luu=Luu,
+               LxT=LxT, LxxT=LxxT, fs=fs, xreg=xreg, ureg=ureg)
     strided = ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu", "LxT", "LxxT",
                "fs")
     _check("riccati_backward", ins, dt, dev, dict(
@@ -243,18 +265,69 @@ def riccati_backward(derivs_l, dterm_l, fs_l, xreg, ureg):
     strides = np.array([s for key in strided for s in _lane_strides(
         "riccati_backward", key, ins[key], key not in ("LxT", "LxxT"))],
         dtype=np.int64)
-
-    def e(*s):
-        return torch.empty(s, dtype=dt, device=dev)
-    Vx, Vxx = e(T + 1, ndx, B), e(T + 1, ndx, ndx, B)
-    Qu, k, K, Quuk = e(T, nu, B), e(T, nu, B), e(T, nu, ndx, B), e(T, nu, B)
-    failed = torch.empty(B, dtype=torch.uint8, device=dev)
+    Vx, Vxx, Qu, k, K, Quuk, failed = riccati_outs(T, ndx, nu, (B,), fs,
+                                                    torch.uint8)
     _launch("croc_riccati", dt, dev,
             T, B, ndx, nu, strides.ctypes.data_as(ctypes.c_void_p),
             *[_ptr(t) for t in ins.values()],
             *[_ptr(t) for t in (Vx, Vxx, Qu, k, K, Quuk, failed)])
     riccati_backward.launches += 1
     return Vx, Vxx, Qu, k, K, Quuk, failed.bool()
+
+
+def riccati_outs(T, ndx, nu, lane, like, flag=torch.bool):
+    """Empty (Vx, Vxx, Qu, k, K, Quuk, failed) of a Riccati pass, with the
+    trailing lane axes ``lane`` ((B,) or ())."""
+    def e(*s):
+        return like.new_empty(s + lane)
+    return (e(T + 1, ndx), e(T + 1, ndx, ndx), e(T, nu), e(T, nu),
+            e(T, nu, ndx), e(T, nu), like.new_empty(lane, dtype=flag))
+
+
+RICCATI_SCHEMA = ("(Tensor Fx, Tensor Fu, Tensor Lx, Tensor Lu, Tensor Lxx, "
+                   "Tensor Lxu, Tensor Luu, Tensor LxT, Tensor LxxT, "
+                   "Tensor fs, Tensor xreg, Tensor ureg) -> (" + ", ".join(
+                       ["Tensor"] * 7) + ")")
+_op_riccati = _custom_op("riccati_backward", riccati_backward_op,
+                         RICCATI_SCHEMA)
+
+
+@_op_riccati.register_fake
+def _(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg, ureg):
+    return riccati_outs(Fx.shape[0], fs.shape[1], Lu.shape[1],
+                         (fs.shape[-1],), fs)
+
+
+def riccati_args(derivs, dterm, fs):
+    """The Riccati ops' tensor arguments before xreg and ureg."""
+    d = derivs
+    return (d.Fx, d.Fu, d.Lx, d.Lu, d.Lxx, d.Lxu, d.Luu, dterm.Lx, dterm.Lxx,
+            fs)
+
+
+def riccati_trees(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT):
+    """(derivs, dterm) of the Riccati ops' arguments (``riccati_args``'
+    inverse, fs left out)."""
+    from ..core.action import NodeDerivs
+    return (NodeDerivs(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu,
+                       Luu=Luu),
+            NodeDerivs(Fx=None, Fu=None, Lx=LxT, Lu=None, Lxx=LxxT, Lxu=None,
+                       Luu=None))
+
+
+def _on_card(name, t):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got one "
+                         f"on {t.device}")
+
+
+def riccati_backward(derivs_l, dterm_l, fs_l, xreg, ureg):
+    """CUDA twin of fused_scans.riccati_backward_lanes_plain, through the op
+    ``torch.ops.crocoddyl_tpu_torch.riccati_backward``."""
+    _riccati_dims("riccati_backward", fs_l.shape[1], derivs_l.Lu.shape[1])
+    _on_card("riccati_backward", fs_l)
+    return torch.ops.crocoddyl_tpu_torch.riccati_backward(
+        *riccati_args(derivs_l, dterm_l, fs_l), xreg, ureg)
 
 
 riccati_backward.launches = 0
@@ -404,12 +477,18 @@ _DESC = collections.OrderedDict()
 def descriptor(seg, device, dtype) -> _Descriptor:
     """The descriptor of ``seg`` on (device, dtype), built once and kept for
     the last few segments (the key holds a reference to ``seg``, so its id
-    cannot be reused while cached)."""
+    cannot be reused while cached).  Under ``torch.export`` a cached
+    descriptor is read as it is, and a new one is kept for that export only
+    (``control.cached``), so no traced tensor stays in the cache."""
     key = (id(seg), str(device), dtype)
     hit = _DESC.get(key)
     if hit is not None and hit[0] is seg:
-        _DESC.move_to_end(key)
+        if not control.exporting():
+            _DESC.move_to_end(key)
         return hit[1]
+    if control.exporting():
+        return control.cached(seg, ("descriptor", str(device), dtype),
+                              lambda: _Descriptor(seg, device, dtype))
     desc = _Descriptor(seg, device, dtype)
     _DESC[key] = (seg, desc)
     while len(_DESC) > 8:
@@ -421,29 +500,61 @@ def descriptor(seg, device, dtype) -> _Descriptor:
 # Kernel 1: node linearization
 # ---------------------------------------------------------------------------
 
-def node_calc_both(seg, x_l, u_l):
-    """CUDA twin of fused_node.calc_both_lanes_plain."""
-    from ..core.action import NodeDerivs
-    dt, dev = x_l.dtype, x_l.device
-    desc = descriptor(seg, dev, dt)
-    N = x_l.shape[-1]
-    if N % desc.K:
-        raise ValueError(f"{N} nodes do not split into {desc.K} knots")
-    B = N // desc.K
-    ndx, nu = desc.ndx, desc.nu
-    _check("node_calc_both", dict(x=x_l, u=u_l), dt, dev,
-           dict(x=(desc.nx, N), u=(nu, N)))
-
-    def e(*s):
-        return torch.empty(s + (N,), dtype=dt, device=dev)
-    Fx, Fu, Lx, Lu = e(ndx, ndx), e(ndx, nu), e(ndx), e(nu)
-    Lxx, Lxu, Luu, xnext, cost = e(ndx, ndx), e(ndx, nu), e(nu, nu), \
-        e(desc.nx), e()
+def node_calc_both_op(meta, robot, par, x, u, ndx, node_ws, leaves, spec):
+    """Kernel 1's CUDA implementation (the op ``node_calc_both``): the
+    descriptor's tensors, x (nx, N), u (nu, N), and the descriptor's ndx
+    and workspace size.  ``leaves``/``spec`` (the stack as
+    ``utils/struct.flat_spec`` gives it) are the CPU implementation's."""
+    dt, dev = x.dtype, x.device
+    N, K = x.shape[-1], par.shape[0]
+    if N % K:
+        raise ValueError(f"{N} nodes do not split into {K} knots")
+    _check("node_calc_both", dict(x=x, u=u, robot=robot, par=par), dt, dev,
+           dict(u=(u.shape[0], N)))
+    Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost = _node_outs(x, u.shape[0],
+                                                            ndx)
     _launch("croc_node", dt, dev,
-            N, B, desc.nmeta, desc.nrobot, desc.node_ws, _ptr(desc.meta),
-            _ptr(desc.robot), _ptr(desc.par), _ptr(x_l), _ptr(u_l),
+            N, N // K, meta.numel(), robot.numel(), node_ws, _ptr(meta),
+            _ptr(robot), _ptr(par), _ptr(x), _ptr(u),
             *[_ptr(t) for t in (Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost)])
     node_calc_both.launches += 1
+    return Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost
+
+
+def _node_outs(x, nu, ndx):
+    N = x.shape[-1]
+
+    def e(*s):
+        return x.new_empty(s + (N,))
+    return (e(ndx, ndx), e(ndx, nu), e(ndx), e(nu), e(ndx, ndx), e(ndx, nu),
+            e(nu, nu), e(x.shape[0]), e())
+
+
+_op_node = _custom_op(
+    "node_calc_both", node_calc_both_op,
+    "(Tensor? meta, Tensor? robot, Tensor? par, Tensor x, Tensor u, int ndx, "
+    "int node_ws, Tensor[] leaves, str spec) -> ("
+    + ", ".join(["Tensor"] * 9) + ")")
+
+
+@_op_node.register_fake
+def _(meta, robot, par, x, u, ndx, node_ws, leaves, spec):
+    return _node_outs(x, u.shape[0], ndx)
+
+
+def node_calc_both(seg, x_l, u_l):
+    """CUDA twin of fused_node.calc_both_lanes_plain, through the op
+    ``torch.ops.crocoddyl_tpu_torch.node_calc_both``."""
+    from ..core.action import NodeDerivs
+    _on_card("node_calc_both", x_l)
+    desc = descriptor(seg, x_l.device, x_l.dtype)
+    if x_l.shape[0] != desc.nx:
+        raise ValueError(f"node_calc_both: x has {x_l.shape[0]} rows, the "
+                         f"model {desc.nx}")
+    Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, xnext, cost = \
+        torch.ops.crocoddyl_tpu_torch.node_calc_both(
+            desc.meta, desc.robot, desc.par, x_l, u_l, desc.ndx,
+            desc.node_ws, [], "")
     return (NodeDerivs(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu,
                        Luu=Luu), xnext, cost)
 
@@ -480,31 +591,78 @@ def riccati_launch_shape(B, ndx, nu, dtype):
 # Kernel 3: trial rollout
 # ---------------------------------------------------------------------------
 
-def trial_rollout(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha):
-    """CUDA twin of fused_scans.trial_rollout_lanes_plain."""
-    dt, dev = x0_l.dtype, x0_l.device
-    desc = descriptor(seg, dev, dt)
-    T, B = us_l.shape[0], x0_l.shape[-1]
-    nx, ndx, nu = desc.nx, desc.ndx, desc.nu
-    if T != desc.K:
-        raise ValueError(f"{T} steps for {desc.K} knots")
-    _check("trial_rollout", dict(x0=x0_l, xs=xs_l, us=us_l, k=k_l, K=K_l,
-                                 fs=fs_l), dt, dev,
-           dict(x0=(nx, B), xs=(T, nx, B), us=(T, nu, B), k=(T, nu, B),
-                K=(T, nu, ndx, B), fs=(T, ndx, B)))
+def _rollout_outs(x0, T, nu, flag=torch.bool):
+    """Empty (xs_try, us_try, x_last, cost, failed) of a rollout, with the
+    lane axes of x0 ((nx, B) or (nx,))."""
+    lane = tuple(x0.shape[1:])
 
     def e(*s):
-        return torch.empty(s, dtype=dt, device=dev)
-    xs_try, us_try, x_last, cost = e(T, nx, B), e(T, nu, B), e(nx, B), e(B)
-    failed = torch.empty(B, dtype=torch.uint8, device=dev)
-    _launch("croc_rollout", dt, dev,
-            T, B, desc.nmeta, desc.nrobot, desc.P, desc.ws, _ptr(desc.meta),
-            _ptr(desc.robot), _ptr(desc.par),
-            *[_ptr(t) for t in (x0_l, xs_l, us_l, k_l, K_l, fs_l)],
-            ctypes.c_double(float(alpha)),
-            *[_ptr(t) for t in (xs_try, us_try, x_last, cost, failed)])
-    trial_rollout.launches += 1
+        return x0.new_empty(s + lane)
+    return (e(T, x0.shape[0]), e(T, nu), e(x0.shape[0]), e(),
+            x0.new_empty(lane, dtype=flag))
+
+
+def _rollout_launch(name, meta, robot, par, x0, xs, us, k, K, fs, alpha, ws):
+    """Check and launch kernel 3 (``croc_rollout``, lanes) or 5
+    (``croc_rollout_b1``, one problem); returns its outputs."""
+    dt, dev = x0.dtype, x0.device
+    T, nx, nu, ndx = us.shape[0], x0.shape[0], us.shape[1], fs.shape[1]
+    lane = tuple(x0.shape[1:])
+    if T != par.shape[0]:
+        raise ValueError(f"{T} steps for {par.shape[0]} knots")
+    _check(name, dict(x0=x0, xs=xs, us=us, k=k, K=K, fs=fs, alpha=alpha,
+                      robot=robot, par=par), dt, dev,
+           dict(xs=(T, nx) + lane, us=(T, nu) + lane, k=(T, nu) + lane,
+                K=(T, nu, ndx) + lane, fs=(T, ndx) + lane, alpha=()))
+    xs_try, us_try, x_last, cost, failed = _rollout_outs(x0, T, nu,
+                                                         torch.uint8)
+    dims = (T,) + lane + (meta.numel(), robot.numel(), par.shape[1], ws)
+    _launch(name, dt, dev, *dims, _ptr(meta), _ptr(robot), _ptr(par),
+            *[_ptr(t) for t in (x0, xs, us, k, K, fs, alpha, xs_try, us_try,
+                                x_last, cost, failed)])
     return xs_try, us_try, x_last, cost, failed.bool()
+
+
+_ROLLOUT_SCHEMA = ("(Tensor? meta, Tensor? robot, Tensor? par, Tensor x0, "
+                   "Tensor xs, Tensor us, Tensor k, Tensor K, Tensor fs, "
+                   "Tensor alpha, int ws, Tensor[] leaves, str spec) -> ("
+                   + ", ".join(["Tensor"] * 5) + ")")
+
+
+def trial_rollout_op(meta, robot, par, x0, xs, us, k, K, fs, alpha, ws,
+                     leaves, spec):
+    """Kernel 3's CUDA implementation (the op ``trial_rollout``): the
+    descriptor's tensors, the lane-layout rows, α a 0-d tensor; ``leaves``
+    and ``spec`` are the CPU implementation's."""
+    out = _rollout_launch("croc_rollout", meta, robot, par, x0, xs, us, k, K,
+                          fs, alpha, ws)
+    trial_rollout.launches += 1
+    return out
+
+
+_op_rollout = _custom_op("trial_rollout", trial_rollout_op, _ROLLOUT_SCHEMA)
+
+
+@_op_rollout.register_fake
+def _(meta, robot, par, x0, xs, us, k, K, fs, alpha, ws, leaves, spec):
+    return _rollout_outs(x0, us.shape[0], us.shape[1])
+
+
+def as_scalar(v, like):
+    """``v`` (a float or a tensor) as a 0-d tensor of like's dtype on its
+    device."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device).reshape(())
+
+
+def trial_rollout(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha):
+    """CUDA twin of fused_scans.trial_rollout_lanes_plain, through the op
+    ``torch.ops.crocoddyl_tpu_torch.trial_rollout``; α a float or a 0-d
+    tensor."""
+    _on_card("trial_rollout", x0_l)
+    desc = descriptor(seg, x0_l.device, x0_l.dtype)
+    return torch.ops.crocoddyl_tpu_torch.trial_rollout(
+        desc.meta, desc.robot, desc.par, x0_l, xs_l, us_l, k_l, K_l, fs_l,
+        as_scalar(alpha, x0_l), desc.ws, [], "")
 
 
 trial_rollout.launches = 0
@@ -524,34 +682,49 @@ def rollout_launch_shape(seg, B, dtype):
 # Kernel 4: single-problem Riccati backward pass
 # ---------------------------------------------------------------------------
 
-def riccati_backward_b1(derivs, dterm, fs, xreg, ureg):
-    """CUDA twin of fused_scans.riccati_backward_fused_plain: contiguous
-    single-problem inputs, derivs leaves (T, ...), dterm Lx (ndx,) / Lxx
-    (ndx, ndx), fs (T+1, ndx); xreg and ureg are scalars (a float or a 0-d
-    tensor), passed by value."""
-    T, ndx = derivs.Fx.shape[0], fs.shape[1]
-    nu = derivs.Lu.shape[1]
+def riccati_backward_b1_op(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs,
+                           xreg, ureg):
+    """Kernel 4's CUDA implementation (the op ``riccati_backward_b1``):
+    contiguous single-problem inputs, xreg and ureg 0-d tensors that the
+    kernel reads on the device."""
+    T, ndx = Fx.shape[0], fs.shape[1]
+    nu = Lu.shape[1]
     dt, dev = fs.dtype, fs.device
     _riccati_dims("riccati_backward_b1", ndx, nu)
-    d = derivs
-    ins = dict(Fx=d.Fx, Fu=d.Fu, Lx=d.Lx, Lu=d.Lu, Lxx=d.Lxx, Lxu=d.Lxu,
-               Luu=d.Luu, LxT=dterm.Lx, LxxT=dterm.Lxx, fs=fs)
+    ins = dict(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu, Luu=Luu,
+               LxT=LxT, LxxT=LxxT, fs=fs, xreg=xreg, ureg=ureg)
     _check("riccati_backward_b1", ins, dt, dev, dict(
         Fx=(T, ndx, ndx), Fu=(T, ndx, nu), Lx=(T, ndx), Lu=(T, nu),
         Lxx=(T, ndx, ndx), Lxu=(T, ndx, nu), Luu=(T, nu, nu), LxT=(ndx,),
-        LxxT=(ndx, ndx), fs=(T + 1, ndx)))
-
-    def e(*s):
-        return torch.empty(s, dtype=dt, device=dev)
-    Vx, Vxx = e(T + 1, ndx), e(T + 1, ndx, ndx)
-    Qu, k, K, Quuk = e(T, nu), e(T, nu), e(T, nu, ndx), e(T, nu)
-    failed = torch.empty((), dtype=torch.uint8, device=dev)
+        LxxT=(ndx, ndx), fs=(T + 1, ndx), xreg=(), ureg=()))
+    Vx, Vxx, Qu, k, K, Quuk, failed = riccati_outs(T, ndx, nu, (), fs,
+                                                    torch.uint8)
     _launch("croc_riccati_b1", dt, dev, T, ndx, nu,
             *[_ptr(t) for t in ins.values()],
-            ctypes.c_double(float(xreg)), ctypes.c_double(float(ureg)),
             *[_ptr(t) for t in (Vx, Vxx, Qu, k, K, Quuk, failed)])
     riccati_backward_b1.launches += 1
     return Vx, Vxx, Qu, k, K, Quuk, failed.bool()
+
+
+_op_riccati_b1 = _custom_op("riccati_backward_b1", riccati_backward_b1_op,
+                            RICCATI_SCHEMA)
+
+
+@_op_riccati_b1.register_fake
+def _(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg, ureg):
+    return riccati_outs(Fx.shape[0], fs.shape[1], Lu.shape[1], (), fs)
+
+
+def riccati_backward_b1(derivs, dterm, fs, xreg, ureg):
+    """CUDA twin of fused_scans.riccati_backward_fused_plain, through the op
+    ``torch.ops.crocoddyl_tpu_torch.riccati_backward_b1``: derivs leaves
+    (T, ...), dterm Lx (ndx,) / Lxx (ndx, ndx), fs (T+1, ndx); xreg and
+    ureg floats or 0-d tensors, read by the kernel on the device."""
+    _riccati_dims("riccati_backward_b1", fs.shape[1], derivs.Lu.shape[1])
+    _on_card("riccati_backward_b1", fs)
+    return torch.ops.crocoddyl_tpu_torch.riccati_backward_b1(
+        *riccati_args(derivs, dterm, fs), as_scalar(xreg, fs),
+        as_scalar(ureg, fs))
 
 
 riccati_backward_b1.launches = 0
@@ -561,32 +734,36 @@ riccati_backward_b1.launches = 0
 # Kernel 5: single-problem trial rollout
 # ---------------------------------------------------------------------------
 
-def trial_rollout_b1(seg, x0, xs, us, k, K, fs, alpha):
-    """CUDA twin of fused_scans.trial_rollout_fused_plain: seg holds the T
-    running knots (no terminal knot), x0 (nx,), xs (T, nx), us/k (T, nu),
-    K (T, nu, ndx), fs (T, ndx), all contiguous; alpha a float."""
-    dt, dev = x0.dtype, x0.device
-    desc = descriptor(seg, dev, dt)
-    T = us.shape[0]
-    nx, ndx, nu = desc.nx, desc.ndx, desc.nu
-    if T != desc.K:
-        raise ValueError(f"{T} steps for {desc.K} knots")
-    _check("trial_rollout_b1", dict(x0=x0, xs=xs, us=us, k=k, K=K, fs=fs),
-           dt, dev, dict(x0=(nx,), xs=(T, nx), us=(T, nu), k=(T, nu),
-                         K=(T, nu, ndx), fs=(T, ndx)))
-
-    def e(*s):
-        return torch.empty(s, dtype=dt, device=dev)
-    xs_try, us_try, x_last, cost = e(T, nx), e(T, nu), e(nx), e()
-    failed = torch.empty((), dtype=torch.uint8, device=dev)
-    _launch("croc_rollout_b1", dt, dev,
-            T, desc.nmeta, desc.nrobot, desc.P, desc.ws, _ptr(desc.meta),
-            _ptr(desc.robot), _ptr(desc.par),
-            *[_ptr(t) for t in (x0, xs, us, k, K, fs)],
-            ctypes.c_double(float(alpha)),
-            *[_ptr(t) for t in (xs_try, us_try, x_last, cost, failed)])
+def trial_rollout_b1_op(meta, robot, par, x0, xs, us, k, K, fs, alpha, ws,
+                        leaves, spec):
+    """Kernel 5's CUDA implementation (the op ``trial_rollout_b1``): the
+    descriptor's tensors, x0 (nx,), xs (T, nx), us/k (T, nu), K (T, nu,
+    ndx), fs (T, ndx), all contiguous; α a 0-d tensor; ``leaves`` and
+    ``spec`` are the CPU implementation's."""
+    out = _rollout_launch("croc_rollout_b1", meta, robot, par, x0, xs, us, k,
+                          K, fs, alpha, ws)
     trial_rollout_b1.launches += 1
-    return xs_try, us_try, x_last, cost, failed.bool()
+    return out
+
+
+_op_rollout_b1 = _custom_op("trial_rollout_b1", trial_rollout_b1_op,
+                            _ROLLOUT_SCHEMA)
+
+
+@_op_rollout_b1.register_fake
+def _(meta, robot, par, x0, xs, us, k, K, fs, alpha, ws, leaves, spec):
+    return _rollout_outs(x0, us.shape[0], us.shape[1])
+
+
+def trial_rollout_b1(seg, x0, xs, us, k, K, fs, alpha):
+    """CUDA twin of fused_scans.trial_rollout_fused_plain, through the op
+    ``torch.ops.crocoddyl_tpu_torch.trial_rollout_b1``: seg holds the T
+    running knots (no terminal knot); α a float or a 0-d tensor."""
+    _on_card("trial_rollout_b1", x0)
+    desc = descriptor(seg, x0.device, x0.dtype)
+    return torch.ops.crocoddyl_tpu_torch.trial_rollout_b1(
+        desc.meta, desc.robot, desc.par, x0, xs, us, k, K, fs,
+        as_scalar(alpha, x0), desc.ws, [], "")
 
 
 trial_rollout_b1.launches = 0

@@ -22,7 +22,8 @@ import torch
 from ..core.action import NodeDerivs
 from ..dynamics import algorithms as algo
 from ..dynamics.model import JointType
-from ..utils.struct import tree_map
+from ..utils.struct import flat_spec, tree_map, unflat_spec
+from . import cuda_kernels as _ck
 
 
 # ---------------------------------------------------------------------------
@@ -1204,7 +1205,8 @@ def calc_both_lanes_plain(seg, x_l, u_l):
     ``calc_both_lanes``) over :func:`lane_calc_both`, the port of the lane
     body fused_node.py:981-1267."""
     _check_nodes(seg, x_l, u_l)
-    calc_both_lanes_plain.calls += 1
+    if not torch.compiler.is_compiling():
+        calc_both_lanes_plain.calls += 1
     return lane_calc_both(lane_params(seg, x_l.shape[-1]), x_l, u_l)
 
 
@@ -1212,10 +1214,102 @@ calc_both_lanes_plain.calls = 0
 
 
 def calc_both_lanes(seg, x_l, u_l):
-    """Node linearization of N = K·B nodes (node n at knot n // B).
-    CUDA tensors launch the kernel of csrc/node_kernel.cu; CPU tensors take
-    the plain version."""
+    """Node linearization of N = K·B nodes (node n at knot n // B), through
+    the op ``torch.ops.crocoddyl_tpu_torch.node_calc_both``: CUDA tensors
+    launch the kernel of csrc/node_kernel.cu; CPU tensors take the plain
+    version (the op's CPU implementation)."""
     if x_l.is_cuda:
-        from . import cuda_kernels
-        return cuda_kernels.node_calc_both(seg, x_l, u_l)
-    return calc_both_lanes_plain(seg, x_l, u_l)
+        return _ck.node_calc_both(seg, x_l, u_l)
+    leaves, spec = flat_spec(seg)
+    out = torch.ops.crocoddyl_tpu_torch.node_calc_both(
+        None, None, None, x_l, u_l, seg.state_.ndx, 0, leaves, spec)
+    return NodeDerivs(*out[:7]), out[7], out[8]
+
+
+def _node_cpu(meta, robot, par, x, u, ndx, node_ws, leaves, spec):
+    d, xnext, cost = calc_both_lanes_plain(unflat_spec(leaves, spec), x, u)
+    return (d.Fx, d.Fu, d.Lx, d.Lu, d.Lxx, d.Lxu, d.Luu, xnext, cost)
+
+
+torch.library.register_kernel("crocoddyl_tpu_torch::node_calc_both", "cpu",
+                              _node_cpu)
+
+
+def _primal(leaves, spec, x, u, lo, hi):
+    seg = unflat_spec(leaves, spec)
+    if (lo, hi) != (0, seg.dt.shape[0]):
+        seg = tree_map(lambda l: l[lo:hi], seg)
+    xnext, cost = lane_calc_primal(lane_params(seg, x.shape[-1]), x, u)
+    return xnext, cost
+
+
+_primal_op = torch.library.custom_op(
+    "crocoddyl_tpu_torch::lane_calc_primal", _primal, mutates_args=(),
+    schema="(Tensor[] leaves, str spec, Tensor x, Tensor u, int lo, int hi) "
+           "-> (Tensor, Tensor)")
+
+
+@_primal_op.register_fake
+def _(leaves, spec, x, u, lo, hi):
+    return x.new_empty(x.shape), x.new_empty(x.shape[-1:])
+
+
+def _state_diff(xa, xb, has_ff, nq, nv):
+    return _lane_state_diff(has_ff, nq, nv, xa, xb)[0]
+
+
+def _state_integrate(x, dx, has_ff, nq, nv):
+    return lane_integrate(has_ff, nq, nv, x, dx)
+
+
+_diff_op = torch.library.custom_op(
+    "crocoddyl_tpu_torch::state_diff", _state_diff, mutates_args=(),
+    schema="(Tensor xa, Tensor xb, bool has_ff, int nq, int nv) -> Tensor")
+_integrate_op = torch.library.custom_op(
+    "crocoddyl_tpu_torch::state_integrate", _state_integrate,
+    mutates_args=(),
+    schema="(Tensor x, Tensor dx, bool has_ff, int nq, int nv) -> Tensor")
+
+
+@_diff_op.register_fake
+def _(xa, xb, has_ff, nq, nv):
+    return xa.new_empty((2 * nv,) + tuple(xa.shape[1:]))
+
+
+@_integrate_op.register_fake
+def _(x, dx, has_ff, nq, nv):
+    return x.new_empty(x.shape)
+
+
+def state_diff(has_ff, nq, nv, xa, xb):
+    """xb ⊖ xa of the multibody state in lane layout ((nx, N) -> (ndx,
+    N)): ``_lane_state_diff`` as the op
+    ``torch.ops.crocoddyl_tpu_torch.state_diff`` (one node under
+    ``torch.export``)."""
+    return torch.ops.crocoddyl_tpu_torch.state_diff(xa, xb, has_ff, nq, nv)
+
+
+def state_integrate(has_ff, nq, nv, x, dx):
+    """x ⊕ dx in lane layout: ``lane_integrate`` as the op
+    ``torch.ops.crocoddyl_tpu_torch.state_integrate``."""
+    return torch.ops.crocoddyl_tpu_torch.state_integrate(x, dx, has_ff, nq,
+                                                         nv)
+
+
+def calc_primal(seg, x_l, u_l, lo=0, hi=None):
+    """(xnext (nx, N), cost (N,)) of the knots lo:hi of the stack ``seg`` at
+    N = K·A nodes (node n at knot lo + n // A): the plain lane primal
+    (``lane_calc_primal``) on either device, as the op
+    ``torch.ops.crocoddyl_tpu_torch.lane_calc_primal``, which
+    ``torch.export`` records as one node over the stack's leaves."""
+    leaves, spec = flat_spec(seg)
+    return torch.ops.crocoddyl_tpu_torch.lane_calc_primal(
+        leaves, spec, x_l, u_l, lo, seg.dt.shape[0] if hi is None else hi)
+
+
+def prepare(seg, like):
+    """Build what the kernels read of the stack ``seg`` for tensors like
+    ``like``: on the card its descriptor (``cuda_kernels.descriptor``),
+    once and before a solver's loops; nothing on the CPU."""
+    if like.is_cuda:
+        _ck.descriptor(seg, like.device, like.dtype)

@@ -10,7 +10,13 @@ The functions named ``*_plain`` are the plain PyTorch versions (a loop over
 t of the JAX step functions; the b=1 ones are the lane loops at B=1 with
 the lane axis squeezed).  The wrappers send CUDA tensors to the kernels of
 csrc/riccati_kernel.cu, rollout_kernel.cu, riccati_fused_kernel.cu and
-rollout_fused_kernel.cu and CPU tensors to the plain versions.
+rollout_fused_kernel.cu and CPU tensors to the plain versions.  The Riccati
+passes go through the ops ``torch.ops.crocoddyl_tpu_torch.riccati_backward``
+and ``riccati_backward_b1`` on either device: their CPU implementation,
+registered here, is the plain version.  The rollouts' plain versions read
+the segment's dataclasses, which an op argument cannot carry, so on the
+CPU their wrappers call them directly; on the card
+``ops/cuda_kernels.trial_rollout``/``trial_rollout_b1`` call the ops.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import torch
 
 from ..core.action import NodeDerivs
 from ..dynamics.model import JointType
-from ..utils.struct import tree_map
+from ..utils.struct import flat_spec, tree_map, unflat_spec
+from . import cuda_kernels as _ck
 from .fused_node import (_lane_state_diff, lane_calc_primal, lane_integrate,
                          lane_params, lchol, lcho_solve, leye, lmm_chunk,
                          lmv, lT, supports)
@@ -86,7 +93,8 @@ def riccati_backward_lanes_plain(derivs_l, dterm_l, fs_l, xreg, ureg):
     dterm_l Lx (ndx, B) / Lxx (ndx, ndx, B), fs_l (T+1, ndx, B), xreg/ureg
     (B,).  Returns (Vx (T+1,ndx,B), Vxx (T+1,ndx,ndx,B), Qu (T,nu,B),
     k (T,nu,B), K (T,nu,ndx,B), Quuk (T,nu,B), failed (B,) bool)."""
-    riccati_backward_lanes_plain.calls += 1
+    if not torch.compiler.is_compiling():
+        riccati_backward_lanes_plain.calls += 1
     return _riccati_loop(derivs_l, dterm_l, fs_l, xreg, ureg)
 
 
@@ -94,12 +102,10 @@ riccati_backward_lanes_plain.calls = 0
 
 
 def riccati_backward_lanes(derivs_l, dterm_l, fs_l, xreg, ureg):
-    """Batched Riccati backward pass (see the plain version for shapes)."""
-    if fs_l.is_cuda:
-        from . import cuda_kernels
-        return cuda_kernels.riccati_backward(derivs_l, dterm_l, fs_l, xreg,
-                                             ureg)
-    return riccati_backward_lanes_plain(derivs_l, dterm_l, fs_l, xreg, ureg)
+    """Batched Riccati backward pass (see the plain version for shapes),
+    through the op ``riccati_backward``."""
+    return torch.ops.crocoddyl_tpu_torch.riccati_backward(
+        *_ck.riccati_args(derivs_l, dterm_l, fs_l), xreg, ureg)
 
 
 def _rollout_loop(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha):
@@ -133,7 +139,8 @@ def trial_rollout_lanes_plain(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, fsT_l,
     knot parameters, read by knot; x0_l (nx, B); xs_l/us_l/k_l/K_l/fs_l
     (T, ..., B); alpha a float.  Returns (xs_try (T,nx,B), us_try (T,nu,B),
     x_last (nx,B), cost (B,), failed (B,) bool)."""
-    trial_rollout_lanes_plain.calls += 1
+    if not torch.compiler.is_compiling():
+        trial_rollout_lanes_plain.calls += 1
     return _rollout_loop(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha)
 
 
@@ -145,11 +152,11 @@ def trial_rollout_lanes(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, fsT_l, alpha):
     (see the plain version for shapes).  ``fsT_l`` (fs[T]) is not read: the
     terminal node stays with the caller, as in the JAX signature."""
     if x0_l.is_cuda:
-        from . import cuda_kernels
-        return cuda_kernels.trial_rollout(seg, x0_l, xs_l, us_l, k_l, K_l,
-                                          fs_l, alpha)
-    return trial_rollout_lanes_plain(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l,
-                                     fsT_l, alpha)
+        return _ck.trial_rollout(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha)
+    leaves, spec = flat_spec(seg)
+    return torch.ops.crocoddyl_tpu_torch.trial_rollout(
+        None, None, None, x0_l, xs_l, us_l, k_l, K_l, fs_l,
+        _ck.as_scalar(alpha, x0_l), 0, leaves, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +174,8 @@ def riccati_backward_fused_plain(derivs, dterm, fs, xreg, ureg):
     scalars.  Returns (Vx (T+1,ndx), Vxx (T+1,ndx,ndx), Qu (T,nu), k (T,nu),
     K (T,nu,ndx), Quuk (T,nu), failed () bool) — the outputs of
     fddp._backward_pass (non-box)."""
-    riccati_backward_fused_plain.calls += 1
+    if not torch.compiler.is_compiling():
+        riccati_backward_fused_plain.calls += 1
 
     def reg(r):
         return torch.as_tensor(r, dtype=fs.dtype, device=fs.device).reshape(1)
@@ -181,11 +189,11 @@ riccati_backward_fused_plain.calls = 0
 
 def riccati_backward_fused(derivs, dterm, fs, xreg, ureg):
     """Single-problem Riccati backward pass (see the plain version for
-    shapes); CUDA tensors go to csrc/riccati_fused_kernel.cu."""
-    if fs.is_cuda:
-        from . import cuda_kernels
-        return cuda_kernels.riccati_backward_b1(derivs, dterm, fs, xreg, ureg)
-    return riccati_backward_fused_plain(derivs, dterm, fs, xreg, ureg)
+    shapes), through the op ``riccati_backward_b1``: CUDA tensors go to
+    csrc/riccati_fused_kernel.cu."""
+    return torch.ops.crocoddyl_tpu_torch.riccati_backward_b1(
+        *_ck.riccati_args(derivs, dterm, fs), _ck.as_scalar(xreg, fs),
+        _ck.as_scalar(ureg, fs))
 
 
 def trial_rollout_fused_plain(seg, x0, xs, us, k, K, fs, alpha):
@@ -195,7 +203,8 @@ def trial_rollout_fused_plain(seg, x0, xs, us, k, K, fs, alpha):
     ndx), of which the first T rows are read; us/k (T, nu); K (T, nu, ndx);
     alpha a float.  Returns (xs_try (T,nx), us_try (T,nu), x_last (nx,),
     cost (), failed () bool); the terminal node stays with the caller."""
-    trial_rollout_fused_plain.calls += 1
+    if not torch.compiler.is_compiling():
+        trial_rollout_fused_plain.calls += 1
     T = us.shape[0]
     out = _rollout_loop(seg, _lane(x0), _lane(xs[:T]), _lane(us), _lane(k),
                         _lane(K), _lane(fs[:T]), alpha)
@@ -211,10 +220,11 @@ def trial_rollout_fused(seg, x0, xs, us, k, K, fs, alpha):
     csrc/rollout_fused_kernel.cu."""
     T = us.shape[0]
     if x0.is_cuda:
-        from . import cuda_kernels
-        return cuda_kernels.trial_rollout_b1(seg, x0, xs[:T], us, k, K,
-                                             fs[:T], alpha)
-    return trial_rollout_fused_plain(seg, x0, xs, us, k, K, fs, alpha)
+        return _ck.trial_rollout_b1(seg, x0, xs[:T], us, k, K, fs[:T], alpha)
+    leaves, spec = flat_spec(seg)
+    return torch.ops.crocoddyl_tpu_torch.trial_rollout_b1(
+        None, None, None, x0, xs[:T], us, k, K, fs[:T],
+        _ck.as_scalar(alpha, x0), 0, leaves, spec)
 
 
 def supports_problem(problem, settings) -> bool:
@@ -223,6 +233,37 @@ def supports_problem(problem, settings) -> bool:
     return (not settings.box and len(problem.segments) == 1
             and supports(problem.segments[0]))
 
+
+def _riccati_cpu(plain):
+    """The CPU implementation of a Riccati op: its plain version on the
+    op's flat arguments."""
+    def impl(*args):
+        *blocks, fs, xreg, ureg = args
+        return tuple(plain(*_ck.riccati_trees(*blocks), fs, xreg, ureg))
+    return impl
+
+
+def _rollout_lanes_cpu(meta, robot, par, x0, xs, us, k, K, fs, alpha, ws,
+                       leaves, spec):
+    return tuple(trial_rollout_lanes_plain(
+        unflat_spec(leaves, spec), x0, xs, us, k, K, fs, None, alpha))
+
+
+def _rollout_b1_cpu(meta, robot, par, x0, xs, us, k, K, fs, alpha, ws,
+                    leaves, spec):
+    return tuple(trial_rollout_fused_plain(
+        unflat_spec(leaves, spec), x0, xs, us, k, K, fs, alpha))
+
+
+torch.library.register_kernel("crocoddyl_tpu_torch::trial_rollout", "cpu",
+                              _rollout_lanes_cpu)
+torch.library.register_kernel("crocoddyl_tpu_torch::trial_rollout_b1", "cpu",
+                              _rollout_b1_cpu)
+torch.library.register_kernel("crocoddyl_tpu_torch::riccati_backward", "cpu",
+                              _riccati_cpu(riccati_backward_lanes_plain))
+torch.library.register_kernel(
+    "crocoddyl_tpu_torch::riccati_backward_b1", "cpu",
+    _riccati_cpu(riccati_backward_fused_plain))
 
 PLAIN = (riccati_backward_lanes_plain, trial_rollout_lanes_plain,
          riccati_backward_fused_plain, trial_rollout_fused_plain)

@@ -11,6 +11,8 @@ a dtype, or stacks a list of same-structure knots.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
 
 import torch.utils._pytree as pytree
 
@@ -54,6 +56,8 @@ class PyTreeNode:
         pytree.register_pytree_node(
             cls, flatten, unflatten,
             serialized_type_name=f"{cls.__module__}.{cls.__qualname__}",
+            to_dumpable_context=json.dumps,
+            from_dumpable_context=lambda s: _tuples(json.loads(s)),
             flatten_with_keys_fn=flatten_with_keys)
 
     def replace(self, **changes):
@@ -64,3 +68,28 @@ tree_map = pytree.tree_map
 tree_leaves = pytree.tree_leaves
 tree_flatten = pytree.tree_flatten
 tree_unflatten = pytree.tree_unflatten
+
+
+def _tuples(v):
+    """JSON's lists back into the tuples of a static context."""
+    return tuple(_tuples(x) for x in v) if isinstance(v, list) else v
+
+
+def flat_spec(tree):
+    """(leaves, the tree structure as a string): how an op argument list
+    carries a dataclass tree (``unflat_spec`` rebuilds it).  The string is
+    kept on the tree's object."""
+    from ..core.solvers import control
+    leaves, spec = tree_flatten(tree)
+    return leaves, control.cached(tree, "_spec_str",
+                                  lambda: pytree.treespec_dumps(spec))
+
+
+@functools.lru_cache(maxsize=64)
+def _spec(text):
+    return pytree.treespec_loads(text)
+
+
+def unflat_spec(leaves, text):
+    """The tree of ``flat_spec``."""
+    return tree_unflatten(list(leaves), _spec(text))

@@ -555,6 +555,16 @@ def _jax_lanes():
 
 def node_case(prob, B):
     """``jax_node_case`` for the JAX problem ``prob``."""
+    knots, xn, un = node_inputs(prob, B)
+    seg_l = jax.tree.map(
+        lambda l: jnp.repeat(jnp.moveaxis(l, 0, -1), B, axis=-1), knots)
+    ref = _jax_lanes()(seg_l, jnp.asarray(xn.T), jnp.asarray(un.T))
+    return knots, xn, un, B, ref
+
+
+def node_inputs(prob, B):
+    """The nodes of ``node_case`` without the JAX linearization: (knots,
+    xn (K·B, nx), un (K·B, nu))."""
     xs, us = perturbed_nodes(prob)
     term = prob.terminal.replace(dt=jnp.zeros_like(prob.terminal.dt))
     knots = jax.tree.map(lambda r, t: jnp.concatenate([r, t[None]]),
@@ -563,7 +573,4 @@ def node_case(prob, B):
     us = np.concatenate([us, np.zeros_like(us[-1:])])
     xn, un = _nodes(xs, B, 1), _nodes(us, B, 2)
     xn[:, 3:7] /= np.linalg.norm(xn[:, 3:7], axis=1, keepdims=True)
-    seg_l = jax.tree.map(
-        lambda l: jnp.repeat(jnp.moveaxis(l, 0, -1), B, axis=-1), knots)
-    ref = _jax_lanes()(seg_l, jnp.asarray(xn.T), jnp.asarray(un.T))
-    return knots, xn, un, B, ref
+    return knots, xn, un

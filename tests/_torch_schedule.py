@@ -25,7 +25,8 @@ own (a problem built once for its tests) stays one block, and the blocks
 are spread evenly too.  The port's tests (tests/test_torch_*.py) come
 last: they are short once their
 JAX references are computed (tests/_torch_parity.py starts those at the
-session's start), and fill the workers' tails.  It changes which worker
+session's start), and fill the workers' tails, the longest of them
+(``PORT_FIRST``) first.  It changes which worker
 runs a test and when, never a test.  Without xdist it changes nothing.
 
 Each part counts.  Replayed through xdist's scheduling rules with the
@@ -80,6 +81,16 @@ SLOW = ("tests/test_rh5.py::test_zmp_and_cop_analysis",
         "tests/test_kin_tangents.py::test_tangent_basis_feeds_node_derivatives")
 
 
+# the port's tests that take 10 s or more once their JAX references are
+# in: the exports of whole solves (the walk's replans and batch step, the
+# unicycle's solve), longest first; they head the port's tests, so that
+# none starts near the end
+_S = "tests/test_torch_solve.py::test_export_walk_round_trip"
+PORT_FIRST = (f"{_S}[solve_batch]", f"{_S}[fused_scans]",
+              "tests/test_torch_aot.py::test_export_solve_round_trip",
+              f"{_S}[default]")
+
+
 def _module(item) -> str:
     return item.nodeid.split("::", 1)[0]
 
@@ -131,8 +142,10 @@ def schedule(items, workers):
     front = ([it for it in items if "test_gaits" in it.nodeid]
              + sorted((it for it in items if it.nodeid in slow),
                       key=lambda it: slow[it.nodeid]))
-    port = [it for it in items if _module(it).split("/")[-1]
-            .startswith("test_torch_")]
+    first = {n: i for i, n in enumerate(PORT_FIRST)}
+    port = sorted((it for it in items if _module(it).split("/")[-1]
+                   .startswith("test_torch_")),
+                  key=lambda it: first.get(it.nodeid, len(first)))
     taken = {id(it) for it in front + port}
     rest = spread([it for it in items if id(it) not in taken]) + port
     chunk = first_chunk(len(items), workers)

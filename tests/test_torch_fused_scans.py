@@ -31,8 +31,8 @@ import jax
 import jax.numpy as jnp
 
 from tests._torch_parity import _no_persistent_cache  # noqa: F401
-from tests._torch_parity import (jax_node_case, jax_walk, max_rel, np_, t64,
-                                 to_port)
+from tests._torch_parity import (jax_walk_problem, max_rel, node_inputs, np_,
+                                 t64, to_port)
 
 FIELDS = ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu")
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -229,11 +229,18 @@ def riccati_case():
 @functools.lru_cache(maxsize=None)
 def _riccati_case():
     """Derivatives (T, ..., B) + terminal, gaps, regularizations; lane 0 of
-    the second regularization set has a non-PD Quu."""
+    the second regularization set has a non-PD Quu.  The derivatives are
+    the port's plain node linearization of the nodes of ``jax_node_case``
+    (held to JAX's by tests/test_torch_fused_node.py); the JAX and the
+    port's Riccati passes both take them."""
     from crocoddyl_tpu.core.action import NodeDerivs as JD
     from crocoddyl_tpu_torch.core.action import NodeDerivs as TD
-    _, _, _, B, (d_ref, _, _) = jax_node_case()
-    d = {f: _lanes(getattr(d_ref, f), B) for f in FIELDS}
+    from crocoddyl_tpu_torch.ops import fused_node as tfn
+    B = 2
+    knots, xn, un = node_inputs(jax_walk_problem(), B)
+    d_lin, _, _ = tfn.calc_both_lanes_plain(to_port(knots), t64(xn.T),
+                                            t64(un.T))
+    d = {f: _lanes(np_(getattr(d_lin, f)), B) for f in FIELDS}
     T = d["Fx"].shape[0] - 1
     ndx = d["Fx"].shape[1]
     rng = np.random.default_rng(5)
@@ -359,8 +366,8 @@ def _rollout_case(alpha):
     regularization 1e-9 and the JAX lane rollout of them."""
     _, _, fs, B = _riccati_case()
     _, _, _, k, K, _, _ = _riccati_ref(False)
-    knots, xn, un, _, _ = jax_node_case()
-    prob = jax_walk()[0]
+    prob = jax_walk_problem()
+    knots, xn, un = node_inputs(prob, B)
     seg = prob.segments[0]
     T = prob.T
     xs = _lanes(xn.T, B)[:T]
@@ -453,7 +460,7 @@ def test_b1_wrappers_take_plain_versions_on_cpu(riccati_case):
         reg)
     for a, b in zip(lane, out):
         assert torch.equal(a[..., 0], b)
-    prob = to_port(jax_walk()[0])
+    prob = to_port(jax_walk_problem())
     T = prob.T
     x0 = prob.x0
     xs = x0[None].expand(T + 1, -1).contiguous()

@@ -14,7 +14,10 @@ package, float64 on CPU, on the reduced ANYmal walk.
   the direction fields and xs within 1e-8 of their max-abs (the gaps fs
   within 1e-8 of the states' max-abs, see ``_same_solution``);
 - the gate (what ``solve`` refuses, and the multiple-shooting rollout and
-  two segments that it takes) and the device rule of the entry points.
+  two segments that it takes) and the device rule of the entry points;
+- the export of a whole ``solve`` (the replan with and without
+  ``fused_scans``) and ``solve_batch`` (the batch step at B=4) with
+  ``utils/aot``: the loaded program against the eager port.
 
 Both exits' JAX and port solves run once a session, together, in one
 fresh process (``solve_pair``).
@@ -30,7 +33,7 @@ import jax.numpy as jnp
 from tests._torch_parity import _no_persistent_cache  # noqa: F401
 from tests._torch_parity import solve_cache  # noqa: F401
 from tests._torch_parity import (jax_forward_pass, jax_walk, max_rel, np_,
-                                 solve_pair, t64, to_port)
+                                 solve_pair, t64, to_port, torch_walk)
 
 SEQ = dict(record_trace=False, parallel_linesearch=False)
 
@@ -227,3 +230,67 @@ def test_entry_points_need_the_card_or_cpu(entry, monkeypatch):
             ctt.solve(port, t64(xs0), t64(us0), settings)
         else:
             ctt.solve_batch(port, t64(x0s), t64(xs0), t64(us0), settings)
+
+
+EXPORT_FIELDS = ("cost", "iter", "steplength", "is_feasible", "converged",
+                 "diverged", "xreg", "ureg", "stop", "d0", "d1", "xs", "us",
+                 "k", "K", "Vx", "Vxx", "Qu", "fs")
+DECISIONS = ("iter", "steplength", "is_feasible", "converged", "diverged",
+             "xreg")
+
+
+def _export_case(case):
+    """(fn, the argument tuples to run) of a round trip on the reduced walk
+    from its quasi-static warm start, the first the example: ``fn``
+    returns EXPORT_FIELDS of the solution.  The fused-scans replan runs at
+    a second warm start too; the others at the example only (the
+    unicycle's round trip in tests/test_torch_aot.py runs at two x0)."""
+    import crocoddyl_tpu_torch as ctt
+    prob = torch_walk()
+    xs0 = prob.x0[None].expand(prob.T + 1, -1).clone()
+    us0 = prob.quasi_static(xs0)
+
+    def fields(sol):
+        return tuple(getattr(sol, f) for f in EXPORT_FIELDS)
+    if case == "solve_batch":
+        rng = np.random.default_rng(0)
+        nq, B = prob.state.nq, 4
+
+        x0s = prob.x0[None].repeat(B, 1)
+        x0s[:, nq:] += t64(0.01 * rng.standard_normal((B, prob.state.nv)))
+        settings = ctt.SolverSettings(maxiter=1, **SEQ)
+        return (lambda x0s, xs, us: fields(ctt.solve_batch(
+            prob, x0s, xs, us, settings, device="cpu")), [(x0s, xs0, us0)])
+    settings = ctt.SolverSettings(maxiter=1,
+                                  fused_scans=case == "fused_scans")
+    return (lambda xs, us: fields(ctt.solve(prob, xs, us, settings,
+                                            device="cpu")),
+            [(xs0, us0)] + [(xs0, 1.01 * us0)] * (case == "fused_scans"))
+
+
+@pytest.mark.parametrize("case", ["fused_scans", "default", "solve_batch"])
+def test_export_walk_round_trip(case):
+    """A whole solve of the reduced walk through ``aot.export_bytes``,
+    ``torch.export.save`` and ``aot.import_bytes``: the MPC replan
+    ``solve(maxiter=1)`` with ``fused_scans=True`` (the plain versions of
+    kernels 1, 4 and 5 as the ops the card's program launches) and with
+    the default settings (kernel 1 and the generic passes), and the batch
+    step ``solve_batch(maxiter=1)`` at B=4 (kernels 1, 2 and 3).  The
+    ladder, the line search and the BoxQP-free passes are recorded as
+    loops and branches; at the example start (and for the fused-scans
+    replan at another) the loaded program takes the eager solve's decisions (equal)
+    with its costs within rtol 1e-12, and every other field within 1e-12
+    of its max-abs."""
+    from crocoddyl_tpu_torch.utils import aot
+    fn, runs = _export_case(case)
+    program = aot.import_bytes(aot.export_bytes(fn, *runs[0]))
+    for args in runs:
+        got, want = program(*args), fn(*args)
+        for name, a, b in zip(EXPORT_FIELDS, got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            if name in DECISIONS:
+                assert torch.equal(a, b), name
+            elif name == "cost":
+                torch.testing.assert_close(a, b, rtol=1e-12, atol=0)
+            else:
+                assert max_rel(b, a) <= 1e-12, name

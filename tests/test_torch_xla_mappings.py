@@ -93,10 +93,11 @@ def test_schedule_orders_the_collection(sched):
 
 
 def test_slow_entries_name_tier1_tests(sched):
-    """Every ``SLOW`` entry names a test the tier-1 run collects (not marked
-    slow): a renamed test would leave the front unnoticed."""
+    """Every ``SLOW`` and ``PORT_FIRST`` entry names a test the tier-1 run
+    collects (not marked slow): a renamed test would leave the front
+    unnoticed."""
     import importlib
-    for nodeid in sched.SLOW:
+    for nodeid in sched.SLOW + sched.PORT_FIRST:
         path, name = nodeid.split("::")
         func, _, param = name.partition("[")
         fn = getattr(importlib.import_module(
