@@ -65,12 +65,13 @@ Phases (any failure exits non-zero; each prints its seconds):
    through ``solve_batch`` at B=2 in float32 (kernels 1 to 3); (b) the
    quadruped anchors of tests/golden.json in float64 on the card, the
    walk through kernels 1, 4 and 5 and the Box-FDDP walk through kernel 1
-   and the generic passes, with the bar of tests/test_examples_golden.py;
+   and the generic passes, with the bar of tests/test_examples_golden.py
+   (in ``goldens_worker``, beside phases 3-5);
    (c) the receding-horizon loop of examples/mpc_receding_horizon.py on
    the T=108 walk in float32: a maxiter=60 plan, then 10 ticks of horizon
    rotation, shifted warm start and maxiter=1 replan (tick latency p50 and
    p90, the plant step timed apart, the kernel descriptors' share,
-   launches per tick, no divergence), and 2 float64 ticks against the
+   launches per tick, no divergence), and 1 float64 tick against the
    plain path (same decisions; cost and the plant's x0 rtol 1e-8);
 10. generic nodes: the two fixed-base anchors of tests/golden.json built
    from the port's modules and solved on the card in float64 through the
@@ -81,7 +82,8 @@ Phases (any failure exits non-zero; each prints its seconds):
    iteration held to the same solve on the CPU and its solve capped at
    ``DP_MAXITER`` iterations (its golden is printed beside it, not held:
    that solve turns rounding-level differences into another local
-   minimum, tests/test_torch_generic_node.py);
+   minimum, tests/test_torch_generic_node.py) (the two anchors in
+   ``exports_worker``, beside phases 3-5);
    the T=108 walk's replan launching what phase 5 launched; the reduced
    walk with a FramePlacement cost on its terminal (kernel 1 for the
    running knots at each linearization, the generic terminal) against the
@@ -109,7 +111,8 @@ Phases (any failure exits non-zero; each prints its seconds):
    ``calc_cops``, ``calc_zmps`` and ``log_solution_csv``
    (chiprun_out/chip_smoke/bipedal_walk_cop_fast.csv); and the CoP walk of
    tests/test_gaits.py:121-150 (0.3 m steps) converged with every CoP
-   inside its support (worst residual > -0.5);
+   inside its support (worst residual > -0.5); (b) and the walk of
+   tests/test_gaits.py run in ``goldens_worker``, beside phases 3-5;
 12. segments: (a) the true-impulse ANYmal walk at bench size
    (``pseudo_impulse=False``: T=108 in 8 segments, 104 rigid-body knots
    and 4 ``ImpulseNode`` knots) as a float32 cold replan
@@ -124,7 +127,7 @@ Phases (any failure exits non-zero; each prints its seconds):
    a float32 cold replan (every kernel at 0 launches) and in float64 on
    the card against the CPU (``cost_tol`` from 1e-10); (d) 2 float32 MPC
    ticks of ``rotate_segmented``, ``shift_warm_start`` and a replan on the
-   reduced walk (p50, p90) and 2 float64 ticks kernel against plain path;
+   reduced walk (p50, p90) and 1 float64 tick kernel against plain path;
    (e) the unicycle anchors with ``ms_chunk=8`` and
    ``parallel_riccati=True`` on the card against the CPU, and the
    one-segment T=108 walk's float32 replans with ``ms_chunk=12`` (kernel
@@ -158,15 +161,37 @@ Phases (any failure exits non-zero; each prints its seconds):
    ops ``torch.ops.crocoddyl_tpu_torch.*``; no plain call), CUDA-event
    medians of the eager solves and of the programs, and the stream syncs
    and device-to-host copies of one run of each under ``torch.profiler``
-   beside the counts of the solvers that decided on the host.
+   beside the counts of the solvers that decided on the host.  Then, in
+   float64 only, three solves whose nodes take their derivatives outside
+   kernel 1: (a) the thesis's CoP walk (T=60, generic ``RigidBodyNode``
+   running and terminal) and (b) the true-impulse walk (T=108, 8
+   segments: kernel 1 on the 104 rigid-body knots, ``ImpulseNode``s at
+   the 4 switch knots), each ``solve(maxiter=1)`` from its quasi-static
+   warm start, and (c) the Box-DDP solve of examples/boxfddp_vs_boxddp.py
+   (the arm, T=60, dt=2e-3, ``box_ddp_settings(maxiter=100)``, bounds
+   ±0.15 × the effort limits), each exported and loaded on the card: the
+   program against the eager solve (the same decisions, cost rtol 1e-12),
+   the program's launches equal to the eager solve's (kernel 1: 0, the
+   eager count and 0; no plain call), (c) held to its golden (bar of
+   tests/test_examples_golden.py:49-58; the record is rounding-stable,
+   ``golden_sensitivity.py boxfddp_vs_boxddp``) eagerly and loaded, the
+   program's bytes, the export seconds and one CUDA-event time each of
+   the eager solve and the program after a warm-up.  Every program of the
+   phase is run once eagerly and then exported on the card in
+   ``exports_worker``, beside phases 3-5.
+
+Two spawned processes, ``exports_worker`` and ``goldens_worker``, start
+after the build and end before phase 6: phases 3-5 time nothing, and
+phases 6-14 run with no other process on the card.  The anchors' seconds
+that the workers print are not metrics.
 
 The line before the last two is the ``kernels`` JSON object: for each of
 the five kernels its launches on its lane's main path (and on each replan
 of phase 6, ``launches_surface``, per MPC tick, ``launches_mpc``, on
 phase 10's two generic solves, ``launches_generic``, on phase 11's
 solves, ``launches_zoo``, on phase 12's, ``launches_seg``, on each
-rank of phase 13, ``launches_fleet``, and on phase 14's float32 programs,
-``launches_export``), its error against
+rank of phase 13, ``launches_fleet``, and on phase 14's float32 programs
+and float64 node-kind programs, ``launches_export``), its error against
 the plain version, its time and the plain version's, and its bound: the
 larger of its bytes (inputs read once, outputs written once) over 3.35
 TB/s and its operations over 67 TFLOP/s (float32 outside the tensor cores;
@@ -878,7 +903,9 @@ GAITS_F64 = ("jumping", "trotting")
 # examples/mpc_receding_horizon.py:65 runs 50; 20 and 3 until phase 14
 # came: the script's time limit
 MPC_TICKS = 10
-MPC_F64_TICKS = 2
+# float64 ticks held to the plain path (~20 s each on the card's host): 3
+# until phase 14, 2 until its float64 node kinds
+MPC_F64_TICKS = 1
 
 
 def gait_problem(torch, name):
@@ -1233,18 +1260,12 @@ def all_launches(ck):
     return {w.__name__: w.launches for w in ck.WRAPPERS}
 
 
-def run_generic(torch, ck, dev, card, walk64, walk_replan, launches_b1,
-                small):
-    """Phase 10 (see the module docstring).  ``walk64``: the T=108 walk in
-    float64 on the card; ``walk_replan()``: phase 5's float32 cold replan
-    of it, whose launches were ``launches_b1``; ``small``: the reduced walk
-    (CPU).  Returns {anchor: {wrapper: launches}}."""
-    from crocoddyl_tpu_torch import (CostFramePlacement, CostStack,
-                                     SolverSettings, ddp_settings, solve)
-    from crocoddyl_tpu_torch.models.multibody.activations import (
-        ActivationQuad)
-    from crocoddyl_tpu_torch.core.solvers import fddp as tfddp
-    f32, f64 = torch.float32, torch.float64
+def generic_anchors(torch, ck, dev, card):
+    """Phase 10's two anchors (see the module docstring), float64 solves
+    held to their golden records and to the CPU.  Returns {anchor:
+    {wrapper: launches}}."""
+    from crocoddyl_tpu_torch import SolverSettings, ddp_settings, solve
+    f64 = torch.float64
     with open(os.path.join(HERE, "tests", "golden.json")) as f:
         golden = json.load(f)
     launches = {}
@@ -1282,8 +1303,7 @@ def run_generic(torch, ck, dev, card, walk64, walk_replan, launches_b1,
         return ok
 
     # -- the arm anchor, held to its golden ---------------------------------
-    arm, arm_xs0, arm_us0 = arm_problem(torch)
-    sol, secs = generic_solve("arm_manipulation", arm,
+    sol, secs = generic_solve("arm_manipulation", arm_problem(torch)[0],
                               ddp_settings(maxiter=100))
     need(vs_golden("arm_manipulation", sol, secs), "arm_manipulation golden")
 
@@ -1304,6 +1324,23 @@ def run_generic(torch, ck, dev, card, walk64, walk_replan, launches_b1,
         f"CPU: steplength {float(k1.steplength)}, xreg {float(k1.xreg):.1e} "
         f"in both, cost rtol {rc:.3e} (tol 1e-9)")
     need(rc <= 1e-9, f"double_pendulum first iteration: cost rtol {rc:.3e}")
+    return launches
+
+
+def run_generic(torch, ck, dev, card, walk64, walk_replan, launches_b1,
+                small):
+    """Phase 10 but its two anchors (``generic_anchors``): the dispatch by
+    structure, the mixed problem, the generic node against kernel 1 and
+    the float32 numbers.  ``walk64``: the T=108 walk in float64 on the
+    card; ``walk_replan()``: phase 5's float32 cold replan of it, whose
+    launches were ``launches_b1``; ``small``: the reduced walk (CPU)."""
+    from crocoddyl_tpu_torch import (CostFramePlacement, CostStack,
+                                     SolverSettings, ddp_settings, solve)
+    from crocoddyl_tpu_torch.models.multibody.activations import (
+        ActivationQuad)
+    from crocoddyl_tpu_torch.core.solvers import fddp as tfddp
+    f32, f64 = torch.float32, torch.float64
+    arm, arm_xs0, arm_us0 = arm_problem(torch)
 
     # -- dispatch by structure: the walk's replan launches what phase 5 did -
     reset_counts()
@@ -1404,7 +1441,6 @@ def run_generic(torch, ck, dev, card, walk64, walk_replan, launches_b1,
     vms = cuda_time(torch, vcalc, runs=3)
     log(f"[generic] time f32 vmapped generic calc_both over the arm's "
         f"{arm.T + 1} knots: {vms:.2f} ms (median of 3)  ({card})")
-    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1596,15 +1632,11 @@ def quadrotor_problem(torch, T=33, dt=3e-2, target=(0.0, 0.0, 1.0),
 ZOO_UNSTABLE = ("bipedal_walk_cop_fast",)
 
 
-def run_zoo(torch, ck, dev, card):
-    """Phase 11 (see the module docstring).  Returns {anchor: {wrapper:
-    launches}}."""
-    from crocoddyl_tpu_torch import SolverSettings, solve
-    from crocoddyl_tpu_torch.apps import rh5
-    f32, f64 = torch.float32, torch.float64
-    with open(os.path.join(HERE, "tests", "golden.json")) as f:
-        golden = json.load(f)
-    launches = {}
+def zoo_helpers(torch, ck, dev, launches):
+    """(zoo_solve, card_vs_cpu): phase 11's solves on the card, each one's
+    launches kept in ``launches`` under its name."""
+    from crocoddyl_tpu_torch import solve
+    f64 = torch.float64
 
     def zoo_solve(name, prob, st, xs, us, dt=f64):
         """One solve on the card with every count zeroed first: (problem
@@ -1644,6 +1676,16 @@ def run_zoo(torch, ck, dev, card):
             f"{rc:.3e} (tol {tol:.1e}; the card's cost moves {sens:.3e} "
             f"under a {DERIV_EPS:.0e} change of its node derivatives)")
         need(rc <= tol, f"{tag}: cost rtol {rc:.3e}")
+    return zoo_solve, card_vs_cpu
+
+
+def run_zoo(torch, ck, dev, card):
+    """Phase 11 (a) (see the module docstring): the CoP walk's replans.
+    Returns {case: {wrapper: launches}}."""
+    from crocoddyl_tpu_torch import SolverSettings, solve
+    f32 = torch.float32
+    launches = {}
+    zoo_solve, card_vs_cpu = zoo_helpers(torch, ck, dev, launches)
 
     # -- (a) the thesis's CoP walk at the example's size, T=60 --------------
     walk, xs0, us0 = cop_walk_problem(torch)
@@ -1666,6 +1708,19 @@ def run_zoo(torch, ck, dev, card):
         f"{split['_forward_pass']:.1f} + rest {rest:.1f}  ({card})")
     p64, _, _ = zoo_solve("cop_walk_replan_f64", walk, one, xs0, us0)
     card_vs_cpu(f"CoP walk T={walk.T} replan", p64, walk, xs0, us0, one)
+    return launches
+
+
+def zoo_anchors(torch, ck, dev, card):
+    """Phase 11 (b) (see the module docstring): the goldens and the CoP
+    walk of tests/test_gaits.py.  Returns {anchor: {wrapper: launches}}."""
+    from crocoddyl_tpu_torch import SolverSettings
+    from crocoddyl_tpu_torch.apps import rh5
+    with open(os.path.join(HERE, "tests", "golden.json")) as f:
+        golden = json.load(f)
+    launches = {}
+    zoo_solve, card_vs_cpu = zoo_helpers(torch, ck, dev, launches)
+    walk = cop_walk_problem(torch)[0]
 
     # -- (b) the goldens --------------------------------------------------
     def warm(prob):
@@ -1743,7 +1798,7 @@ def run_zoo(torch, ck, dev, card):
 # ---------------------------------------------------------------------------
 
 SEG_TICKS = 2       # 10 until phase 13, 4 until phase 14: the time limit
-SEG_F64_TICKS = 2
+SEG_F64_TICKS = 1   # 2 until phase 14's float64 node kinds
 SEG_MAXITER = 60     # tests/test_gaits.py:113-116
 
 
@@ -2324,59 +2379,196 @@ EXPORT_DECISIONS = ("iter", "steplength", "is_feasible", "converged",
 # stream syncs of one float32 cold replan and one batch step in phase 8
 # when the ladder and the line search decided on the host (PERF.md §5)
 HOST_DECIDED_SYNCS = {"replan": 194, "batch": 189}
+# phase 14's float64 solves over nodes outside kernel 1
+NODE_KINDS = ("cop_walk", "impulse_walk", "arm_box_ddp")
 
 
-def run_export(torch, ck, dev, card, p32, p64, xs0, us0, x0s):
-    """Phase 14: the T=108 walk's replan ``solve(maxiter=1,
-    fused_scans=True)`` and phase 4's batch step ``solve_batch(maxiter=1)``
-    at B=256, each exported with ``aot.export_bytes`` in float64 and in
-    float32 and loaded with ``aot.import_bytes``: the float64 programs
-    against the eager port solves on the card (the same decisions, lane
-    by lane; cost rtol 1e-12), the float32 programs' kernel launches (the
-    counts zeroed before each run), the program's size and export time,
-    CUDA-event medians of the eager solve and of the loaded program, and
-    the stream syncs and device-to-host copies of one run of each under
-    ``torch.profiler``.  Returns {case: {wrapper: launches}}."""
-    from crocoddyl_tpu_torch import SolverSettings, solve, solve_batch
-    from crocoddyl_tpu_torch.utils import aot
+def bench_x0s(prob):
+    """Phase 4's B_BENCH initial states: x0 with velocity perturbations
+    0.01·N(0, 1) from seed 0 (bench.py:52-99)."""
+    rng = np.random.default_rng(0)
+    x0s = np.tile(prob.x0.numpy()[None], (B_BENCH, 1))
+    x0s[:, prob.state.nq:] += 0.01 * rng.standard_normal(
+        (B_BENCH, prob.state.nv))
+    return x0s
+
+
+def export_programs(torch, dev, p32, p64, xs0, us0, x0s):
+    """{key: (fn, args)} of every function phase 14 exports: "replan f64",
+    "replan f32", "batch f64", "batch f32" on the one-segment T=108 walk
+    (``p32``/``p64`` on the card, the quasi-static warm start ``xs0``,
+    ``us0`` and phase 4's ``x0s``), and, in float64, NODE_KINDS: the
+    CoP walk (T=60) and the true-impulse walk (T=108) replans from their
+    quasi-static warm starts, and the arm's Box-DDP
+    (examples/boxfddp_vs_boxddp.py:21-29: T=60, dt=2e-3, from x0 tiled and
+    zero controls, bounds ±0.15 × the effort limits).  Every fn returns
+    EXPORT_FIELDS of its solution."""
+    from crocoddyl_tpu_torch import (SolverSettings, arm7, box_ddp_settings,
+                                     solve, solve_batch)
     f32, f64 = torch.float32, torch.float64
-    T = p64.T
     replan_st = SolverSettings(maxiter=1, fused_scans=True)
     batch_st = SolverSettings(maxiter=1, record_trace=False,
                               parallel_linesearch=False)
 
     def fields(sol):
         return tuple(getattr(sol, f) for f in EXPORT_FIELDS)
-    cases = {
-        "replan": (lambda p: lambda xs, us: fields(solve(
-            p, xs, us, replan_st, device=dev)),
-            lambda dt: (xs0.to(dev, dt), us0.to(dev, dt)),
-            ("node", "riccati_b1", "rollout_b1")),
-        "batch": (lambda p: lambda x0s_, xs, us: fields(solve_batch(
-            p, x0s_, xs, us, batch_st, device=dev)),
-            lambda dt: (torch.tensor(x0s, dtype=dt, device=dev),
-                        xs0.to(dev, dt), us0.to(dev, dt)),
-            ("node", "riccati", "rollout"))}
+
+    def replan(p):
+        return lambda xs, us: fields(solve(p, xs, us, replan_st, device=dev))
+
+    def batch(p):
+        return lambda x0s_, xs, us: fields(solve_batch(
+            p, x0s_, xs, us, batch_st, device=dev))
+    out = {}
+    for dt, p, tag in ((f64, p64, "f64"), (f32, p32, "f32")):
+        out[f"replan {tag}"] = (replan(p), (xs0.to(dev, dt),
+                                            us0.to(dev, dt)))
+        out[f"batch {tag}"] = (batch(p), (
+            torch.tensor(x0s, dtype=dt, device=dev), xs0.to(dev, dt),
+            us0.to(dev, dt)))
+    one = SolverSettings(maxiter=1)
+    cop, cxs, cus = cop_walk_problem(torch)
+    need(cop.T == 60 and not cop.on_lanes, f"CoP walk T={cop.T}")
+    imp, ixs, ius = build_walk(torch, 25, 2, pseudo_impulse=False)
+    kinds, knots = segment_kinds(imp)
+    need(imp.T == 108 and len(kinds) == 8 and knots == {
+        "RigidBodyNode": 104, "ImpulseNode": 4}, "true-impulse walk shape")
+    arm = arm_problem(torch, T=60, dt=2e-3)[0]
+    lim = (0.15 * arm7().effort_limit).to(dev, f64)
+    for name, prob, xs, us, st, kw in (
+            ("cop_walk", cop, cxs, cus, one, {}),
+            ("impulse_walk", imp, ixs, ius, one, {}),
+            ("arm_box_ddp", arm, arm.x0[None].expand(arm.T + 1, -1),
+             torch.zeros(arm.T, arm.nu, dtype=f64),
+             box_ddp_settings(maxiter=100), dict(u_lb=-lim, u_ub=lim))):
+        p = to_dev(torch, prob, dev, f64)
+
+        def fn(xs_, us_, p=p, st=st, kw=kw):
+            return fields(solve(p, xs_, us_, st, device=dev, **kw))
+        out[name] = (fn, (xs.to(dev, f64).contiguous(), us.to(dev, f64)))
+    return out
+
+
+def exports_worker(device):
+    """Phase 14's programs on ``device`` (the card), each run once eagerly
+    and then exported with ``aot.export_bytes``: the eager run builds
+    what a solve caches (the kernels' descriptors, the knot list, the
+    stacked knots), which the export then reads as the eager solve does,
+    instead of recording its build.  Then phase 10's two anchors
+    (``generic_anchors``).  Runs in a process of its own beside phases 3-5
+    (``start_worker``), with ``goldens_worker``; the exports are host
+    work, seconds to a minute each, and the two processes' shares are
+    about even.  Returns ({key: (bytes, export seconds)}, phase 10's
+    {anchor: {wrapper: launches}})."""
+    import torch
+    from crocoddyl_tpu_torch.ops import cuda_kernels as ck
+    from crocoddyl_tpu_torch.utils import aot
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev, card = torch.device(device), card_line()
+    prob, xs0, us0 = build_walk(torch, 25, 2)
+    progs = export_programs(
+        torch, dev, to_dev(torch, prob, dev, torch.float32),
+        to_dev(torch, prob, dev, torch.float64), xs0, us0, bench_x0s(prob))
+    out = {}
+    for key, (fn, args) in progs.items():
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = aot.export_bytes(fn, *args)
+        out[key] = (data, time.perf_counter() - t0)
+    return out, generic_anchors(torch, ck, dev, card)
+
+
+def goldens_worker(device):
+    """Phase 9b (``run_goldens``) and phase 11 (b) (``zoo_anchors``) in a
+    process of their own (``start_worker``), beside phases 3-5: float64
+    solves held to golden records, the CPU and the CoP bar, host-bound,
+    whose times are not metrics.  Returns phase 11's {anchor: {wrapper:
+    launches}}."""
+    import torch
+    from crocoddyl_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    run_goldens(torch, dev)
+    return zoo_anchors(torch, ck, dev, card_line())
+
+
+def _worker(queue, target, device):
+    try:
+        queue.put(("ok", target(device)))
+    except BaseException:
+        import traceback
+        queue.put(("failed", traceback.format_exc()))
+
+
+def start_worker(target, device=DEVICE):
+    """``target(device)`` in a spawned process (a daemon: it ends with this
+    one); returns the handle that ``finish_worker`` reads."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_worker, args=(queue, target, device),
+                       daemon=True, name=f"chip_smoke {target.__name__}")
+    proc.start()
+    return proc, queue, target.__name__
+
+
+def finish_worker(handle, timeout=900):
+    """The value of the worker's target, once its process has ended; a
+    failed check if it raised or did not answer within ``timeout``
+    seconds."""
+    import queue as queue_mod
+    proc, queue, name = handle
+    try:
+        status, value = queue.get(timeout=timeout)
+    except queue_mod.Empty:
+        proc.kill()
+        status, value = "failed", f"no answer after {timeout} s"
+    proc.join(timeout=60)
+    need(status == "ok", f"{name} failed:\n{value}")
+    return value
+
+
+def run_export(torch, ck, dev, card, p32, p64, xs0, us0, x0s, data):
+    """Phase 14: the programs of ``export_programs``, exported by
+    ``exports_worker`` (``data``: {key: (bytes, export seconds)}) and
+    loaded here with ``aot.import_bytes``.  The
+    T=108 walk's replan ``solve(maxiter=1, fused_scans=True)`` and phase
+    4's batch step ``solve_batch(maxiter=1)`` at B=256: the float64
+    programs against the eager port solves on the card (the same
+    decisions, lane by lane; cost rtol 1e-12), the float32 programs'
+    kernel launches (the counts zeroed before each run), the program's
+    size and export time, CUDA-event medians of the eager solve and of the
+    loaded program, and the stream syncs and device-to-host copies of one
+    run of each under ``torch.profiler``; then NODE_KINDS
+    (``export_node_kinds``).  Returns {case: {wrapper: launches}}."""
+    from crocoddyl_tpu_torch.utils import aot
+    f32, f64 = torch.float32, torch.float64
+    T = p64.T
+    progs = export_programs(torch, dev, p32, p64, xs0, us0, x0s)
+    cases = {"replan": ("node", "riccati_b1", "rollout_b1"),
+             "batch": ("node", "riccati", "rollout")}
     TAG = {f64: "f64", f32: "f32"}
     launches = {}
-    for name, (make, args_of, keys) in cases.items():
-        progs = {}
-        for dt, p in ((f64, p64), (f32, p32)):
-            fn, args = make(p), args_of(dt)
+    for name, keys in cases.items():
+        loaded = {}
+        for dt in (f64, f32):
+            key = f"{name} {TAG[dt]}"
+            fn, args = progs[key]
             fn(*args)
+            blob, t_exp = data[key]
             t0 = time.perf_counter()
-            data = aot.export_bytes(fn, *args)
-            t_exp = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            prog = aot.import_bytes(data)
+            prog = aot.import_bytes(blob)
             prog(*args)
             torch.cuda.synchronize()
             t_load = time.perf_counter() - t0
-            log(f"[export] {name} {TAG[dt]} T={T}: program "
-                f"{len(data)} bytes, export {t_exp:.1f} s, load and first "
-                f"run {t_load:.1f} s")
-            progs[dt] = (fn, prog, args)
-        fn, prog, args = progs[f64]
+            log(f"[export] {name} {TAG[dt]} T={T}: program {len(blob)} "
+                f"bytes, export {t_exp:.1f} s (in a worker beside phases 3-5), load "
+                f"and first run {t_load:.1f} s")
+            loaded[dt] = (fn, prog, args)
+        fn, prog, args = loaded[f64]
         want, got = fn(*args), prog(*args)
         for fld, a, b in zip(EXPORT_FIELDS, got, want):
             need(a.shape == b.shape and a.dtype == b.dtype,
@@ -2389,7 +2581,7 @@ def run_export(torch, ck, dev, card, p32, p64, xs0, us0, x0s):
             f"eager solve on the card: {', '.join(EXPORT_DECISIONS)} "
             f"equal, cost rtol {rc:.3e}, us max abs {du:.3e}")
         need(rc <= 1e-12, f"export {name}: cost rtol {rc:.3e}")
-        fn, prog, args = progs[f32]
+        fn, prog, args = loaded[f32]
         reset_counts()
         out = prog(*args)
         torch.cuda.synchronize()
@@ -2420,7 +2612,73 @@ def run_export(torch, ck, dev, card, p32, p64, xs0, us0, x0s):
                 f"{100 * prof['idle_share']:.1f} % of {prof['wall_ms']:.1f}"
                 f" ms (host-decided solver: {HOST_DECIDED_SYNCS[name]} "
                 f"syncs)  ({card})")
-    log(f"[export] custom-op launches of the float32 programs: {launches}")
+    launches.update(export_node_kinds(torch, ck, card, progs, data))
+    log(f"[export] custom-op launches of the programs: {launches}")
+    return launches
+
+
+def export_node_kinds(torch, ck, card, progs, data):
+    """Phase 14's float64 NODE_KINDS (see the module docstring): each
+    program of ``data`` (key: (bytes, export seconds)) loaded and held to
+    the eager solve of ``progs`` (key: (fn, args)) on the card.  Returns
+    {case: {wrapper: launches}} of the programs."""
+    from crocoddyl_tpu_torch.utils import aot
+    with open(os.path.join(HERE, "tests", "golden.json")) as f:
+        golden = json.load(f)["boxfddp_vs_boxddp"]
+    launches = {}
+    for name in NODE_KINDS:
+        fn, args = progs[name]
+        blob, t_exp = data[name]
+        tag = f"{name} f64 T={args[1].shape[0]}"
+
+        def counted(f):
+            """``f(*args)`` with the counts zeroed just before and read just
+            after; no plain version may run."""
+            reset_counts()
+            out = f(*args)
+            torch.cuda.synchronize()
+            need(not any(plain_calls()), f"export {tag}: plain versions ran")
+            return out, all_launches(ck)
+        # each counted run is also the warm-up of the timed run after it
+        want, eager_l = counted(fn)
+        eager_ms = cuda_time(torch, lambda: fn(*args), runs=1, warmup=False)
+        prog = aot.import_bytes(blob)
+        got, prog_l = counted(prog)
+        prog_ms = cuda_time(torch, lambda: prog(*args), runs=1, warmup=False)
+        node = prog_l["node_calc_both"]
+        need(prog_l == eager_l and (node > 0) == (name == "impulse_walk"),
+             f"export {tag}: launches {prog_l}, eager {eager_l}")
+        launches[name] = prog_l
+        for fld, a, b in zip(EXPORT_FIELDS, got, want):
+            need(a.shape == b.shape and a.dtype == b.dtype,
+                 f"export {tag}: {fld} shape or dtype")
+            if fld in EXPORT_DECISIONS:
+                need(torch.equal(a, b), f"export {tag}: {fld} differs")
+        rc = float((got[0] - want[0]).abs() / want[0].abs())
+        du = float((got[9] - want[9]).abs().max())
+        log(f"[export] {tag}: program {len(blob)} bytes, export "
+            f"{t_exp:.1f} s (in a worker beside phases 3-5); against the eager solve "
+            f"on the card: {', '.join(EXPORT_DECISIONS)} equal, cost rtol "
+            f"{rc:.3e}, us max abs {du:.3e}; launches {prog_l} (eager "
+            f"{eager_l}), no plain call; iter {int(got[1])}, cost "
+            f"{float(got[0])!r}")
+        need(rc <= 1e-12, f"export {tag}: cost rtol {rc:.3e}")
+        log(f"[export] time f64 {tag}: eager {eager_ms:.2f} ms, loaded "
+            f"program {prog_ms:.2f} ms (CUDA events, one run after a "
+            f"warm-up)  ({card})")
+        if name != "arm_box_ddp":
+            continue
+        for what, out in (("eager", want), ("loaded program", got)):
+            rg = abs(float(out[0]) - golden["cost"]) / abs(golden["cost"])
+            ok = (bool(out[4]) == golden["converged"]
+                  and abs(int(out[1]) - golden["iters"]) <= 1 and rg <= 1e-5)
+            log(f"[export] {tag} {what} against the golden "
+                f"boxfddp_vs_boxddp: converged {bool(out[4])} in "
+                f"{int(out[1])} iterations, cost {float(out[0])!r}; golden "
+                f"{golden['converged']}, {golden['iters']}, "
+                f"{golden['cost']!r}: cost rtol {rg:.3e} (tol 1e-5, "
+                f"iterations within 1)")
+            need(ok, f"export {tag}: {what} misses the golden")
     return launches
 
 
@@ -2475,6 +2733,12 @@ def main():
         log(f"[build] {line}")
     phase_done("build")
 
+    # phase 14's exports and the anchors of phases 9b, 10 and 11b run in
+    # two processes beside phases 3-5, which time nothing, and end before
+    # phase 6
+    exports_run = start_worker(exports_worker)
+    goldens_run = start_worker(goldens_worker)
+
     # ---- 3. kernels against their plain versions -------------------------
     small, xs0_s, us0_s = build_walk(torch, 3, 1)
     check_kernels(torch, to_dev(torch, small, dev, f64), 3, dev, f64,
@@ -2497,11 +2761,7 @@ def main():
     phase_done("kernels")
 
     # ---- 4. batch lane --------------------------------------------------
-    rng = np.random.default_rng(0)
-    x0 = prob.x0.numpy()
-    x0s = np.tile(x0[None], (B_BENCH, 1))
-    x0s[:, prob.state.nq:] += 0.01 * rng.standard_normal(
-        (B_BENCH, prob.state.nv))
+    x0s = bench_x0s(prob)
     settings = SolverSettings(maxiter=1, record_trace=False,
                               parallel_linesearch=False)
 
@@ -2601,6 +2861,12 @@ def main():
         f"start")
     xs_w, us_w = conv.xs.cpu(), conv.us.cpu()
     phase_done("b=1")
+
+    # the workers end before the timed phases start
+    exports, generic = finish_worker(exports_run)
+    zoo_anchor_launches = finish_worker(goldens_run)
+    phase_done("workers (14's exports, 9b, 10's anchors, 11b, beside "
+               "phases 3-5)")
 
     # ---- 6. solver surface ----------------------------------------------
     # Box-FDDP with the URDF's effort limits from the rollout of the
@@ -2908,19 +3174,18 @@ def main():
     # ---- 9. gaits and MPC -----------------------------------------------
     run_gaits(torch, ck, dev, card)
     phase_done("gaits")
-    run_goldens(torch, dev)
-    phase_done("goldens")
     per_tick = mpc_loop(torch, ck, dev, card, prob, xs0, us0, p64, xs_w,
                         us_w)
     phase_done("mpc")
 
     # ---- 10. generic nodes --------------------------------------------------
-    generic = run_generic(torch, ck, dev, card, p64,
-                          lambda: replan(p32, f32), launches_b1, small)
+    run_generic(torch, ck, dev, card, p64, lambda: replan(p32, f32),
+                launches_b1, small)
     phase_done("generic")
 
     # ---- 11. the biped, the humanoid and the quadrotor ---------------------
     zoo = run_zoo(torch, ck, dev, card)
+    zoo.update(zoo_anchor_launches)
     phase_done("zoo")
 
     # ---- 12. segmented problems and the true impulse switch knot ----------
@@ -2932,7 +3197,8 @@ def main():
     phase_done("fleet")
 
     # ---- 14. whole solves on the device, exported ------------------------
-    exported = run_export(torch, ck, dev, card, p32, p64, xs0, us0, x0s)
+    exported = run_export(torch, ck, dev, card, p32, p64, xs0, us0, x0s,
+                          exports)
     phase_done("export")
     for k in kernels:
         k["launches_mpc"] = per_tick[WRAPPER[k["name"]]]

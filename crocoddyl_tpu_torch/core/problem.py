@@ -54,7 +54,17 @@ def node_calc(seg, xs: torch.Tensor, us: torch.Tensor, knots=None):
     return _rows(seg, "calc", True, xs, us)
 
 
+# the methods at one point, by direct calls (no vmap)
+_POINT = {"calc_one": "calc", "calc_terminal_one": "calc_terminal"}
+
+
 def _rows_eager(model, method, batched, *args):
+    if method == "calc_diff_terminal":
+        x = args[0]
+        return model.calc_diff_terminal(x), model.calc_terminal(x)
+    if method in _POINT:
+        return getattr(model, _POINT[method])(*args)
+
     def f(m, *a):
         return getattr(m, method)(*a)
     if batched:
@@ -62,48 +72,70 @@ def _rows_eager(model, method, batched, *args):
     return torch.func.vmap(lambda *a: f(model, *a))(*args)
 
 
-def _rows_op(leaves, spec, method, batched, args):
-    return list(tree_leaves(_rows_eager(unflat_spec(leaves, spec), method,
-                                        batched, *args)))
+def _model_of(leaves, spec, knot):
+    """The model of the flat leaves, or its knot ``knot`` if >= 0."""
+    m = unflat_spec(leaves, spec)
+    return m if knot < 0 else tree_map(lambda l: l[knot], m)
+
+
+def _rows_op(leaves, spec, method, batched, args, knot):
+    return list(tree_leaves(_rows_eager(_model_of(leaves, spec, knot),
+                                        method, batched, *args)))
 
 
 _rows_lib = torch.library.custom_op(
     "crocoddyl_tpu_torch::model_rows", _rows_op, mutates_args=(),
     schema="(Tensor[] leaves, str spec, str method, bool batched, "
-           "Tensor[] args) -> Tensor[]")
+           "Tensor[] args, int knot) -> Tensor[]")
 
 
 @_rows_lib.register_fake
-def _(leaves, spec, method, batched, args):
-    m = unflat_spec(leaves, spec)
+def _(leaves, spec, method, batched, args, knot):
+    m = _model_of(leaves, spec, knot)
     x = args[0]
-    N, e = x.shape[0], x.new_empty
+    e = x.new_empty
+    if method == "calc_terminal_one":
+        return [e(())]
+    if method == "calc_one":
+        return [e(x.shape), e(())]
+    N = x.shape[0]
     if method == "calc_terminal":
         return [e(N)]
     if method == "calc":
         return [e(x.shape), e(N)]
     ndx, nu = m.state.ndx, m.nu
+    if method == "calc_diff_terminal":
+        return [e(ndx, ndx), e(ndx, nu), e(ndx), e(nu), e(ndx, ndx),
+                e(ndx, nu), e(nu, nu), e(())]
     return [e(N, ndx, ndx), e(N, ndx, nu), e(N, ndx), e(N, nu),
             e(N, ndx, ndx), e(N, ndx, nu), e(N, nu, nu), e(x.shape), e(N)]
 
 
-def _rows(model, method, batched, *args):
+def _rows(model, method, batched, *args, knot=-1):
     """``model.<method>`` (``calc``, ``calc_terminal`` or ``calc_both``) at
     the rows of ``args`` under ``torch.func.vmap``, the model's leaves
-    batched along the rows too with ``batched``.  Under ``torch.export``
-    the rows are the op ``torch.ops.crocoddyl_tpu_torch.model_rows``,
-    which runs the same vmap: the exporter records it as one node (and
-    does not trace ``torch.func`` transforms inside a loop's body)."""
+    batched along the rows too with ``batched``; at one point ``args``
+    ((nx,), (nu,)) by a direct call: ``calc_one``, ``calc_terminal_one``,
+    and ``calc_diff_terminal``, the terminal's (derivatives, cost).  Under
+    ``torch.export`` this is the op
+    ``torch.ops.crocoddyl_tpu_torch.model_rows``, which runs the same
+    calls: the exporter records it as one node (and traces neither
+    ``torch.func`` transforms nor ``autograd.Function`` JVP rules inside a
+    loop's body); there, with ``knot`` >= 0, of the stack's knot ``knot``,
+    the stack's leaves the op's operands, so that a knot's slices are not
+    constants of their own."""
     if not control.exporting():
         return _rows_eager(model, method, batched, *args)
     leaves, spec = flat_spec(model)
     out = torch.ops.crocoddyl_tpu_torch.model_rows(leaves, spec, method,
-                                                   batched, list(args))
-    if method == "calc_terminal":
+                                                   batched, list(args), knot)
+    if method in ("calc_terminal", "calc_terminal_one"):
         return out[0]
-    if method == "calc":
+    if method in ("calc", "calc_one"):
         return out[0], out[1]
     from .action import NodeDerivs
+    if method == "calc_diff_terminal":
+        return NodeDerivs(*out[:7]), out[7]
     return NodeDerivs(*out[:7]), out[7], out[8]
 
 
@@ -116,7 +148,7 @@ def terminal_calc(term, xs: torch.Tensor) -> torch.Tensor:
         knot = knot.replace(dt=torch.zeros_like(knot.dt))
         return node_calc(knot, xs, xs.new_zeros((xs.shape[0], term.nu)))[1]
     if xs.shape[0] == 1:
-        return term.calc_terminal(xs[0])[None]
+        return _rows(term, "calc_terminal_one", False, xs[0])[None]
     return _rows(term, "calc_terminal", False, xs)
 
 
@@ -241,28 +273,29 @@ class ShootingProblem(PyTreeNode):
     @control.cached_property
     def _knot_list(self):
         """The T running knots of every segment in time order for the
-        sequential rollouts: (True, (the segment, the knot's index in it))
-        for a lane segment, (False, a single model, sliced once)
-        otherwise."""
+        sequential rollouts: (lanes, the segment, the knot's index in it,
+        the knot as a single model, sliced once, or None for a lane
+        segment and under export, where ``model_rows`` slices it)."""
         out = []
         for seg in self.segments:
             lanes = _lane_node(seg)
             for t in range(_seg_len(seg)):
-                out.append((lanes, (seg, t) if lanes
+                out.append((lanes, seg, t, None if lanes or control.exporting()
                             else tree_map(lambda l: l[t], seg)))
         return out
 
     def knot_calc(self, t: int, xs: torch.Tensor, us: torch.Tensor):
         """(xnext (N, nx), cost (N,)) of running knot t at the rows of xs
         (N, nx), us (N, nu) (``node_calc`` of that knot)."""
-        lanes, knot = self._knot_list[t]
+        lanes, seg, i, knot = self._knot_list[t]
         if lanes:
-            seg, i = knot
             return node_calc(seg, xs, us, (i, i + 1))
+        # under export the op slices the knot off its segment's leaves
+        model, k = (seg, i) if control.exporting() else (knot, -1)
         if xs.shape[0] == 1:
-            xn, c = knot.calc(xs[0], us[0])
+            xn, c = _rows(model, "calc_one", False, xs[0], us[0], knot=k)
             return xn[None], c[None]
-        return _rows(knot, "calc", False, xs, us)
+        return _rows(model, "calc", False, xs, us, knot=k)
 
     def calc(self, xs: torch.Tensor, us: torch.Tensor):
         """(xnexts (T, nx), costs (T+1,)) at the trajectory, costs[T] the
@@ -306,8 +339,8 @@ class ShootingProblem(PyTreeNode):
                                        xs.new_zeros((1, self.nu)))
             dterm = self._lane_terminal(tree_map(lambda a: a[0], d1))
         else:
-            dterm = term.calc_diff_terminal(xs[-1])
-            cterm = term.calc_terminal(xs[-1])[None]
+            dterm, cterm = _rows(term, "calc_diff_terminal", False, xs[-1])
+            cterm = cterm[None]
         return derivs, dterm, xnexts, torch.cat([costs, cterm])
 
     @staticmethod

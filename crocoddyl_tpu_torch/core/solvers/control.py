@@ -56,9 +56,10 @@ def export_scope():
 
 def cached(obj, key, build):
     """``build()`` cached on ``obj`` under ``key``: in its ``__dict__`` in
-    eager mode; under export, a value already cached eagerly is read, and a
-    new one is kept in the export's table outside every body and not at all
-    inside one."""
+    eager mode; under export, a value already cached eagerly is read, then
+    one in the export's table (a body reads it as a constant of the
+    enclosing trace), and a new one is kept there outside every body and
+    not at all inside one."""
     hit = obj.__dict__.get(key)
     if hit is not None:
         return hit
@@ -66,13 +67,12 @@ def cached(obj, key, build):
         value = build()
         obj.__dict__[key] = value
         return value
-    if _depth:
-        return build()
     ent = _export_cache.get((id(obj), key))
     if ent is not None and ent[0] is obj:
         return ent[1]
     value = build()
-    _export_cache[(id(obj), key)] = (obj, value)
+    if not _depth:
+        _export_cache[(id(obj), key)] = (obj, value)
     return value
 
 

@@ -206,30 +206,6 @@ def _refusal(problem, settings: SolverSettings) -> Optional[str]:
             "ImpulseNode, or a model with its own calc and derivatives)")
 
 
-def _export_refusal(problem) -> Optional[str]:
-    """The node kind of ``problem`` that ``torch.export`` (torch 2.13)
-    cannot record in a solve, or None.  Such nodes take their derivatives
-    through ``torch.func`` transforms (``jacfwd``, ``jvp``, ``vmap`` over
-    the knots), which the exporter's trace does not pass: a
-    ``RigidBodyNode`` that the node kernel does not admit, an
-    ``ImpulseNode``, and an ``ActionModel`` with the default AD
-    derivatives."""
-    from ...models.multibody.nodes import ImpulseNode, RigidBodyNode
-    for m in (*problem.segments, problem.terminal):
-        if _fn.supports(m):
-            continue
-        if isinstance(m, ImpulseNode):
-            return "an ImpulseNode (jacfwd through its autograd.Function " \
-                   "JVP rules)"
-        if isinstance(m, RigidBodyNode):
-            return "a RigidBodyNode the node kernel does not admit (its " \
-                   "derivatives by jacfwd under torch.func.vmap)"
-        if type(m).calc_diff is ActionModel.calc_diff:
-            return (f"a {type(m).__name__} (ActionModel's default "
-                    "derivatives by torch.func.jacfwd)")
-    return None
-
-
 def supports(problem, settings: SolverSettings) -> bool:
     """True iff ``solve`` covers this problem and configuration: segments
     of ``ActionModel``s (``RigidBodyNode`` and ``ImpulseNode`` included),
@@ -274,16 +250,22 @@ def _calc_diff(problem, xs, us, feasible):
 def _backward_pass(derivs, dterm, fs, xreg, ureg, box_args=None,
                    probe=False):
     """The generic Riccati backward pass (fddp.py:211-303): the pass of
-    ``_backward_loop``; without ``box_args`` through the op
-    ``torch.ops.crocoddyl_tpu_torch.backward_pass`` (its loop over time is
-    one node under ``torch.export``, as JAX's ``lax.scan`` is one
+    ``_backward_loop`` through the op
+    ``torch.ops.crocoddyl_tpu_torch.backward_pass``, or with ``box_args``
+    ``backward_pass_box`` (its loop over time, with a knot's BoxQP loop,
+    is one node under ``torch.export``, as JAX's ``lax.scan`` is one
     primitive).  Returns (Vx, Vxx, Qu, k, K, Quuk, failed), or only
     ``failed`` with ``probe``."""
-    if box_args is not None:
-        return _backward_loop(derivs, dterm, fs, xreg, ureg, box_args, probe)
-    out = torch.ops.crocoddyl_tpu_torch.backward_pass(
-        *_ck.riccati_args(derivs, dterm, fs),
-        _ck.as_scalar(xreg, fs), _ck.as_scalar(ureg, fs))
+    args = (*_ck.riccati_args(derivs, dterm, fs), _ck.as_scalar(xreg, fs),
+            _ck.as_scalar(ureg, fs))
+    if box_args is None:
+        out = torch.ops.crocoddyl_tpu_torch.backward_pass(*args)
+    else:
+        us, u_lb, u_ub, k_warm, use_box, qp_kw = box_args
+        out = torch.ops.crocoddyl_tpu_torch.backward_pass_box(
+            *args, us, u_lb, u_ub, k_warm,
+            torch.as_tensor(use_box, dtype=torch.bool, device=fs.device),
+            *(qp_kw[k] for k in _QP_KEYS))
     return out[-1] if probe else out
 
 
@@ -292,13 +274,33 @@ def _backward_op(*args):
     return _backward_loop(*_ck.riccati_trees(*blocks), fs, xreg, ureg)
 
 
+_QP_KEYS = ("maxiter", "th_acceptstep", "th_grad", "reg")
+
+
+def _backward_box_op(*args):
+    *blocks, fs, xreg, ureg, us, u_lb, u_ub, k_warm, use_box = args[:-4]
+    return _backward_loop(*_ck.riccati_trees(*blocks), fs, xreg, ureg, (
+        us, u_lb, u_ub, k_warm, use_box, dict(zip(_QP_KEYS, args[-4:]))))
+
+
 _bp_op = torch.library.custom_op(
     "crocoddyl_tpu_torch::backward_pass", _backward_op, mutates_args=(),
     schema=_ck.RICCATI_SCHEMA)
+_bp_box_op = torch.library.custom_op(
+    "crocoddyl_tpu_torch::backward_pass_box", _backward_box_op,
+    mutates_args=(), schema=_ck.RICCATI_SCHEMA.replace(
+        "Tensor ureg)", "Tensor ureg, Tensor us, Tensor u_lb, Tensor u_ub, "
+        "Tensor k_warm, Tensor use_box, int qp_maxiter, "
+        "float qp_th_acceptstep, float qp_th_grad, float qp_reg)"))
 
 
 @_bp_op.register_fake
 def _(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg, ureg):
+    return _ck.riccati_outs(Fx.shape[0], fs.shape[1], Lu.shape[1], (), fs)
+
+
+@_bp_box_op.register_fake
+def _(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, *rest):
     return _ck.riccati_outs(Fx.shape[0], fs.shape[1], Lu.shape[1], (), fs)
 
 
@@ -309,20 +311,18 @@ def _backward_loop(derivs, dterm, fs, xreg, ureg, box_args=None,
     ``box_args`` = (us, u_lb, u_ub, k_warm, use_box, qp_kw) the BoxQP gains
     on the knots where ``use_box[t]`` (the knot has a finite bound and the
     candidate is feasible, fddp.py:265-279).  ``use_box`` is a host list
-    or a (T,) bool tensor; the JAX pass runs every knot's QP and selects.
-    In eager mode a tensor is read once and a knot outside ``use_box``
-    does not run its QP, which it would not read; under export every knot
-    runs it and ``use_box`` selects, as in JAX.  ``xreg``/``ureg`` are
-    floats or 0-d tensors.  Returns (Vx, Vxx, Qu, k, K, Quuk, failed), or
-    only ``failed`` with ``probe``."""
+    or a (T,) bool tensor, read once; the JAX pass runs every knot's QP and
+    selects, here a knot outside ``use_box`` does not run its QP, which it
+    would not read.  ``xreg``/``ureg`` are floats or 0-d tensors.  Returns
+    (Vx, Vxx, Qu, k, K, Quuk, failed), or only ``failed`` with
+    ``probe``."""
     dt, dev = fs.dtype, fs.device
     ndx, T = fs.shape[-1], fs.shape[0] - 1
     nu = derivs.Lu.shape[-1]
     xr, ur = xreg, ureg
     if box_args is not None:
         us, u_lb, u_ub, k_warm, use_box, qp_kw = box_args
-        select = control.exporting() and isinstance(use_box, torch.Tensor)
-        if not select and isinstance(use_box, torch.Tensor):
+        if isinstance(use_box, torch.Tensor):
             use_box = use_box.tolist()
     eye = torch.eye(ndx, dtype=dt, device=dev)
     eye_u = torch.eye(nu, dtype=dt, device=dev)
@@ -344,20 +344,12 @@ def _backward_loop(derivs, dterm, fs, xreg, ureg, box_args=None,
         failed = failed | torch.isnan(L).any()
         K = cho_solve(L, Qxu.T / dscale[:, None]) / dscale[:, None]
         kvec = cho_solve(L, Qu / dscale) / dscale
-        if box_args is not None and (select or use_box[t]):
+        if box_args is not None and use_box[t]:
             qsol = boxqp.solve(Quu, Qu, u_lb[t] - us[t], u_ub[t] - us[t],
                                k_warm[t], **qp_kw)
-            K_box = qsol.Hff_inv @ Qxu.T
-            Qu_box = torch.where(qsol.free, Qu, torch.zeros_like(Qu))
-            if select:
-                use = use_box[t]
-                K = torch.where(use, K_box, K)
-                kvec = torch.where(use, -qsol.x, kvec)
-                Qu = torch.where(use, Qu_box, Qu)
-                failed = failed | (use & qsol.failed)
-            else:
-                K, kvec, Qu = K_box, -qsol.x, Qu_box
-                failed = failed | qsol.failed
+            K, kvec = qsol.Hff_inv @ Qxu.T, -qsol.x
+            Qu = torch.where(qsol.free, Qu, torch.zeros_like(Qu))
+            failed = failed | qsol.failed
         Quuk = Quu @ kvec
         Vx = Qx + K.T @ Quuk - 2.0 * (K.T @ Qu)
         Vxx = Qxx - Qxu @ K
@@ -511,20 +503,18 @@ def solve(problem, xs_init: Optional[torch.Tensor] = None,
 
     In eager mode each loop and branch reads its predicate once on the
     host; under ``torch.export`` (``utils/aot.export_bytes``) they are
-    recorded, so the exported program decides on the device.  An
-    ``iter_callback`` runs on the host and only in eager mode."""
+    recorded, so the exported program decides on the device.  Export takes
+    every problem and setting that the eager solve takes but an
+    ``iter_callback``, which runs on the host and only in eager mode (as
+    ``jax.export`` refuses a host callback)."""
     s = settings
     why = _refusal(problem, s)
     if why is not None:
         raise ValueError(f"unsupported configuration for solve: {why}")
-    if control.exporting():
-        if s.iter_callback is not None:
-            raise ValueError("export: iter_callback is a host callback, "
-                             "which an exported program cannot record")
-        kind = _export_refusal(problem)
-        if kind is not None:
-            raise ValueError(f"export: torch.export cannot record {kind} "
-                             "in a solve; solve such a problem eagerly")
+    if control.exporting() and s.iter_callback is not None:
+        raise ValueError("export: iter_callback is a host callback, which "
+                         "an exported program cannot record (jax.export "
+                         "refuses host callbacks too)")
     dev = resolve_device(device)
     dt = problem.x0.dtype
     problem = cast(problem, dev, dt)

@@ -11,15 +11,16 @@ whole ``solve`` (tests/test_aot.py:30-42).  Here:
   serialize the graph: an action model's ``calc``, a problem's rollout and
   cost from ``(x0, us)`` (the tape that ActionModelCodeGen records), or a
   whole ``solve`` or ``solve_batch``.  A solve decides on the device
-  (``core/solvers/control.py``): its iteration loop, regularization ladder,
-  line search and the BoxQP's loop are recorded as ``while_loop`` and
-  ``cond`` nodes, as JAX's ``lax.while_loop``s are (``solve``:
-  fddp.py:649, :658, :744, :855; ``solve_batch``: fddp_batch.py:179,
-  :250, :293; the BoxQP: boxqp.py:92), and each kernel launch as one node
-  of its op ``torch.ops.crocoddyl_tpu_torch.*``.  What the exporter cannot
-  record raises ValueError naming the setting or node kind responsible: a
-  host ``iter_callback``, and the nodes whose derivatives go through
-  ``torch.func`` transforms inside a loop (``solve`` names them).
+  (``core/solvers/control.py``): its iteration loop, regularization ladder
+  and line search are recorded as ``while_loop`` and ``cond`` nodes, as
+  JAX's ``lax.while_loop``s are (``solve``: fddp.py:649, :658, :744, :855;
+  ``solve_batch``: fddp_batch.py:179, :250, :293), and each kernel launch,
+  each generic backward pass (with its BoxQPs under box) and each
+  evaluation of nodes outside the node kernel (``torch.func`` derivatives,
+  ``autograd.Function`` JVP rules) as one node of its op
+  ``torch.ops.crocoddyl_tpu_torch.*``.  Every problem and setting that the
+  eager ``solve`` takes exports but a host ``iter_callback``, which raises
+  ValueError, as ``jax.export`` refuses host callbacks.
 * :func:`precompile`: the port's compile step is the ``nvcc`` build of the
   kernel library and the per-problem kernel descriptors.  It builds the
   library when an example argument sits on the card and runs the function
@@ -103,10 +104,9 @@ def _no_stack_traces():
 def export_bytes(fn: Callable, *example_args) -> bytes:
     """``fn`` recorded by ``torch.export`` at the example arguments' shapes
     and dtypes, serialized (``torch.export.save``).  A whole ``solve`` or
-    ``solve_batch`` is recorded with its loops and branches.  Raises
-    ValueError on what cannot be recorded, naming the setting or node kind
-    (``solve`` refuses an ``iter_callback``; see its module for the node
-    kinds)."""
+    ``solve_batch`` is recorded with its loops and branches, for every
+    node kind.  Raises ValueError on a host ``iter_callback``, the one
+    setting an exported program cannot record."""
     from ..core.solvers import control
     from ..ops import fused_scans  # noqa: F401  (registers the kernels' ops)
     with control.export_scope(), _unused_constants_dropped(), \

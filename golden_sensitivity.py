@@ -4,8 +4,10 @@ rounding-level perturbations, on the CPU in float64.
 
 For the anchors examples/double_pendulum.py, examples/arm_manipulation.py,
 the CoP walk of examples/bipedal_walk_cop.py (``bipedal_walk_cop_fast``),
-examples/humanoid_taichi.py (``humanoid_taichi_fast``) and
-examples/quadrotor.py (``quadrotor``, ``quadrotor_ubound``), solve from x0
+examples/humanoid_taichi.py (``humanoid_taichi_fast``),
+examples/quadrotor.py (``quadrotor``, ``quadrotor_ubound``) and the
+Box-DDP solve of examples/boxfddp_vs_boxddp.py (``boxfddp_vs_boxddp``: the
+arm at T=60, dt=2e-3, bounds ±0.15 × the effort limits), solve from x0
 and from x0 with its first velocity component moved by 1e-15, 1e-13 and
 1e-11, with the configuration of tests/golden_configs.py (a warm start of
 the state tiled from that x0 and the quasi-static controls where the
@@ -45,8 +47,9 @@ import jax.numpy as jnp  # noqa: E402
 
 
 def anchors():
-    """{golden: (problem, settings, warm)}: ``warm`` solves from the state
-    tiled from x0 and the quasi-static controls."""
+    """{golden: (problem, settings, warm)} or (problem, settings, warm,
+    the solve's keyword arguments): ``warm`` solves from the state tiled
+    from x0 and the quasi-static controls."""
     import arm_manipulation
     import bipedal_walk_cop
     import double_pendulum
@@ -60,6 +63,8 @@ def anchors():
         m, ["right_sole", "left_sole"], default_q=np.asarray(q0))
     cop = cop.walking_problem(jnp.concatenate([q0, jnp.zeros(m.nv)]), 0.6,
                               0.1, 0.03, step_knots=6, support_knots=3)
+    arm, _, arm_m = arm_manipulation.make_problem(T=60, dt=2e-3)
+    lim = 0.15 * jnp.asarray(arm_m.effort_limit)
     return {
         "double_pendulum": (double_pendulum.make_problem(),
                             ct.SolverSettings(maxiter=300), False),
@@ -72,6 +77,8 @@ def anchors():
                       ct.SolverSettings(maxiter=200), False),
         "quadrotor_ubound": (quadrotor.make_problem(ubound=True),
                              ct.SolverSettings(maxiter=200), False),
+        "boxfddp_vs_boxddp": (arm, ct.box_ddp_settings(maxiter=100), False,
+                              dict(u_lb=-lim, u_ub=lim)),
         "quadruped_walk_true_impulse": (
             impulse_walk(), ct.SolverSettings(maxiter=60,
                                               record_trace=False), True)}
@@ -97,7 +104,8 @@ def main(names):
         golden = json.load(f)
     table = anchors()
     for name in names or table:
-        prob, settings, warm = table[name]
+        prob, settings, warm, *kw = table[name]
+        kw = kw[0] if kw else {}
         g = golden.get(name)
         nq = prob.state.nq
         for eps in (0.0, 1e-15, 1e-13, 1e-11):
@@ -106,7 +114,8 @@ def main(names):
             if warm:
                 xs = jnp.tile(p.x0[None], (p.T + 1, 1))
                 us = p.quasi_static(xs)
-            sol = ct.solve(p, xs_init=xs, us_init=us, settings=settings)
+            sol = ct.solve(p, xs_init=xs, us_init=us, settings=settings,
+                           **kw)
             if g is None:     # no record: the solve from x0 is the bar
                 g = dict(converged=bool(sol.converged), iters=int(sol.iter),
                          cost=float(sol.cost))

@@ -134,32 +134,60 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import crocoddyl_tpu as ct
 import crocoddyl_tpu_torch as ctt
 from crocoddyl_tpu.core.solvers import fddp_batch
+import threading
 from tests._torch_parity import SOLVE_JOBS, jax_walk, np_, t64, to_port
 entry, path = sys.argv[1], sys.argv[2]
 prob, xs0, us0, x0s = jax_walk()
 port = to_port(prob)
-leaves = {}
+sols = {}
+
+
+def kw(maxiter):
+    return dict(maxiter=maxiter, record_trace=False,
+                parallel_linesearch=False)
+
+
+def port_solves():
+    try:
+        for maxiter in SOLVE_JOBS[entry]:
+            if entry == "solve":
+                # the reference's generic scans against the plain versions
+                # of the port's kernels 4 and 5
+                sols["out", maxiter] = ctt.solve(
+                    port, t64(xs0), t64(us0),
+                    ctt.SolverSettings(fused_scans=True, **kw(maxiter)),
+                    device="cpu")
+            else:
+                sols["out", maxiter] = ctt.solve_batch(
+                    port, t64(x0s), xs_init=t64(xs0), us_init=t64(us0),
+                    settings=ctt.SolverSettings(**kw(maxiter)),
+                    device="cpu")
+    except BaseException as e:
+        sols["error"] = e
+
+
+# the port's solves run beside the JAX solves' trace and compile, which
+# leave the interpreter lock free most of the time (the child's wall time
+# is the JAX part's, ~25 % less than both in turn)
+port_thread = threading.Thread(target=port_solves)
+port_thread.start()
 for maxiter in SOLVE_JOBS[entry]:
-    kw = dict(maxiter=maxiter, record_trace=False, parallel_linesearch=False)
     if entry == "solve":
-        # the reference's generic scans against the plain versions of the
-        # port's kernels 4 and 5
-        ref = ct.solve(prob, xs_init=xs0, us_init=us0,
-                       settings=ct.SolverSettings(**kw))
-        out = ctt.solve(port, t64(xs0), t64(us0),
-                        ctt.SolverSettings(fused_scans=True, **kw),
-                        device="cpu")
+        sols["ref", maxiter] = ct.solve(
+            prob, xs_init=xs0, us_init=us0,
+            settings=ct.SolverSettings(**kw(maxiter)))
     else:
-        ref = fddp_batch.solve_batch(prob, x0s, xs_init=xs0, us_init=us0,
-                                     settings=ct.SolverSettings(**kw))
-        out = ctt.solve_batch(port, t64(x0s), xs_init=t64(xs0),
-                              us_init=t64(us0),
-                              settings=ctt.SolverSettings(**kw),
-                              device="cpu")
-    for tag, sol in (("ref", ref), ("out", out)):
-        for f in dataclasses.fields(sol):
-            if getattr(sol, f.name) is not None:
-                leaves[f"{tag}{maxiter}.{f.name}"] = np_(getattr(sol, f.name))
+        sols["ref", maxiter] = fddp_batch.solve_batch(
+            prob, x0s, xs_init=xs0, us_init=us0,
+            settings=ct.SolverSettings(**kw(maxiter)))
+port_thread.join()
+if "error" in sols:
+    raise sols["error"]
+leaves = {}
+for (tag, maxiter), sol in sols.items():
+    for f in dataclasses.fields(sol):
+        if getattr(sol, f.name) is not None:
+            leaves[f"{tag}{maxiter}.{f.name}"] = np_(getattr(sol, f.name))
 np.savez(path, **leaves)
 """
 

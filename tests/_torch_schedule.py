@@ -83,12 +83,14 @@ SLOW = ("tests/test_rh5.py::test_zmp_and_cop_analysis",
 
 # the port's tests that take 10 s or more once their JAX references are
 # in: the exports of whole solves (the walk's replans and batch step, the
-# unicycle's solve), longest first; they head the port's tests, so that
-# none starts near the end
+# unicycle's solve, the solves over nodes outside kernel 1), longest
+# first; they head the port's tests, so that none starts near the end
 _S = "tests/test_torch_solve.py::test_export_walk_round_trip"
+_K = "tests/test_torch_aot.py::test_export_solve_round_trip_node_kinds"
 PORT_FIRST = (f"{_S}[solve_batch]", f"{_S}[fused_scans]",
               "tests/test_torch_aot.py::test_export_solve_round_trip",
-              f"{_S}[default]")
+              f"{_S}[default]", f"{_K}[impulse_walk]",
+              f"{_K}[generic_running]", f"{_K}[generic_terminal]")
 
 
 def _module(item) -> str:

@@ -12,9 +12,13 @@ and the JAX package, float64 on the CPU:
   program against the eager port solve (rtol 1e-12) and against JAX's
   (the ROADMAP bar); tests/test_torch_solve.py does the same for the
   reduced walk's replans and batch step;
+- the round trip of a solve over every node kind that takes its
+  derivatives outside the node kernel (a generic ``RigidBodyNode`` running
+  stack or terminal, the true-impulse walk's ``ImpulseNode``s, an
+  ``ActionModel`` with the default AD derivatives): the loaded program
+  against the eager port solve (the same decisions, cost rtol 1e-12);
 - what ``export_bytes`` refuses, with a ValueError that names it: an
-  ``iter_callback``, and the node kinds whose derivatives go through
-  ``torch.func`` transforms;
+  ``iter_callback`` (a host callback, which ``jax.export`` refuses too);
 - ``precompile`` returns a callable giving the eager result.
 """
 
@@ -28,10 +32,10 @@ import jax.numpy as jnp
 T = 10
 
 
-def _port_problem():
+def _port_problem(m=None):
     from crocoddyl_tpu_torch import ShootingProblem, replicate_model
     from crocoddyl_tpu_torch.models.unicycle import UnicycleModel
-    m = UnicycleModel()
+    m = UnicycleModel() if m is None else m
     return ShootingProblem(x0=torch.tensor([-1.0, -1.0, 1.0],
                                            dtype=torch.float64),
                            running=replicate_model(m, T), terminal=m)
@@ -170,7 +174,8 @@ def test_export_solve_round_trip():
 
 def test_export_refuses_iter_callback():
     """An ``iter_callback`` runs on the host: ``export_bytes`` refuses a
-    solve that sets one, with a ValueError that says so."""
+    solve that sets one, with a ValueError that says so (``jax.export``
+    refuses a host callback too)."""
     from crocoddyl_tpu_torch import SolverSettings
     from crocoddyl_tpu_torch.utils import aot
     problem = _port_problem()
@@ -180,26 +185,69 @@ def test_export_refuses_iter_callback():
         aot.export_bytes(fn, problem.x0)
 
 
-@pytest.mark.parametrize("kind", ["RigidBodyNode", "ImpulseNode"])
-def test_export_refuses_nodes_with_torch_func_derivatives(kind):
-    """The nodes whose derivatives go through ``torch.func`` transforms,
-    which torch.export cannot record in a solve: a ``RigidBodyNode`` that
-    the node kernel does not admit (the reduced walk with a FrameRotation
-    cost on its running knots) and the true-impulse walk's
-    ``ImpulseNode``.  ``export_bytes`` raises a ValueError that names the
-    node kind; both solve eagerly."""
-    from crocoddyl_tpu_torch import SolverSettings
-    from crocoddyl_tpu_torch.utils import aot
-    if kind == "RigidBodyNode":
+def _node_kind_problem(case):
+    """The problems of ``test_export_solve_round_trip_node_kinds``."""
+    if case in ("generic_running", "generic_terminal"):
         from tests.test_torch_generic_node import _mixed_problems
-        problem = _mixed_problems()["generic_running"]
-    else:
+        return _mixed_problems()[case]
+    if case == "impulse_walk":
         from tests.test_torch_segments import _torch_problem
-        problem = _torch_problem("quad_walk")
-        assert any(type(s).__name__ == kind for s in problem.segments)
+        return _torch_problem("quad_walk")
+    from crocoddyl_tpu_torch import ActionModel
+    from crocoddyl_tpu_torch.models.unicycle import UnicycleModel
+
+    class ADUnicycle(UnicycleModel):
+        calc_diff = ActionModel.calc_diff
+        calc_diff_terminal = ActionModel.calc_diff_terminal
+    return _port_problem(ADUnicycle())
+
+
+DECISIONS = ("iter", "steplength", "is_feasible", "converged", "diverged",
+             "xreg")
+
+
+@pytest.mark.parametrize("case", ["generic_running", "generic_terminal",
+                                  "impulse_walk", "ad_unicycle"])
+def test_export_solve_round_trip_node_kinds(case):
+    """``solve(maxiter=1)`` of a problem whose nodes take their derivatives
+    outside the node kernel, through ``export_bytes``, ``torch.export.save``
+    and ``import_bytes``: the reduced walk with a FrameRotation cost on
+    every running knot (a generic ``RigidBodyNode`` running stack) or a
+    FramePlacement cost on its terminal (a generic terminal), the reduced
+    true-impulse walk (8 segments, ``ImpulseNode``s at the switch knots),
+    and the unicycle at T=10 with ``ActionModel``'s default AD derivatives.
+    The loaded program gives the eager port solve's decisions, its cost at
+    rtol 1e-12 and every other field within 1e-12 of its max-abs, at the
+    example x0.  The eager solves are held to JAX elsewhere: the generic
+    node by tests/test_torch_generic_node.py::test_generic_node_matches_jax
+    (and the mixed stacks to the all-generic evaluation by
+    ``test_mixed_problem_keeps_kernel_on_admitted_stack``), the
+    true-impulse walk's iteration by
+    tests/test_torch_segments.py::test_segmented_walk_solve_matches_jax,
+    the AD derivatives by
+    tests/test_torch_solver_surface.py::test_derivatives_match_jax and
+    their unicycle solve by ``test_unicycle_ad_derivatives_solve_matches_
+    oracle`` there."""
+    from crocoddyl_tpu_torch import SolverSettings
+    from crocoddyl_tpu_torch.ops import fused_node
+    from crocoddyl_tpu_torch.utils import aot
+    problem = _node_kind_problem(case)
+    assert not problem.on_lanes
+    assert any(not fused_node.supports(m)
+               for m in (*problem.segments, problem.terminal))
     fn = _port_solve(problem, SolverSettings(maxiter=1))
-    with pytest.raises(ValueError, match=f"cannot record an? {kind}"):
-        aot.export_bytes(fn, problem.x0)
+    g = aot.import_bytes(aot.export_bytes(fn, problem.x0))
+    got, want = g(problem.x0), fn(problem.x0)
+    for name, a, b in zip(SOLVE_FIELDS + ("trace.cost",), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if name in DECISIONS or not a.is_floating_point():
+            assert torch.equal(a, b), name
+        elif name == "cost":
+            np.testing.assert_allclose(float(a), float(b), rtol=1e-12,
+                                       atol=0)
+        else:
+            assert float((a - b).abs().max()) <= 1e-12 * float(
+                b.abs().max()), name
 
 
 def test_precompile_executes():

@@ -1,6 +1,6 @@
 """Node linearization: the port's plain version of kernel 1
 (``calc_both_lanes_plain``), and the per-node body of the CUDA kernel
-compiled for the host and run on a team of 1 and of 32 threads, vs the JAX
+compiled for the host and run on a team of 1 and of 32 lanes, vs the JAX
 lane body (``calc_both_lanes(..., "jnp")``), float64 on CPU.
 
 Tolerances: derivative fields within 1e-10 of each field's max-abs (both
@@ -23,23 +23,34 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "crocoddyl_tpu_torch", "csrc")
 
 # A host loop over the nodes around the CUDA kernel's per-node body: each
-# node runs on a team of std::threads with a barrier and a shared buffer
-# for sums and broadcasts, its workspace filled with NaN first; then the
-# outputs are read off the workspace as the kernel's write pass does.
+# node runs on a team of lanes with a shared buffer for sums and
+# broadcasts, its workspace filled with NaN first; then the outputs are
+# read off the workspace as the kernel's write pass does.  The lanes are
+# fibers of one host thread (ucontext): a round runs each lane from its
+# last sync() to its next, which is one phase between two barriers, the
+# lanes in order on even nodes and in reverse on odd ones, so that a read
+# that a missing sync leaves ahead of its writer shows, whichever lane
+# writes.  Fibers, not threads: 32 threads meeting at every barrier took
+# over a minute on a busy machine (a few tenths of a second alone).
 _HOST_LOOP = """
-#include <barrier>
 #include <limits>
-#include <thread>
+#include <ucontext.h>
 #include <vector>
 
 namespace {
+struct Fibers {
+  std::vector<ucontext_t> ctx;
+  ucontext_t main;
+  std::vector<int> done;
+};
+
 struct HostTeam {
   int l, n;
-  std::barrier<>* bar;
+  Fibers* f;
   double* buf;
   int lane() const { return l; }
   int size() const { return n; }
-  void sync() const { bar->arrive_and_wait(); }
+  void sync() const { swapcontext(&f->ctx[l], &f->main); }
   template <class S> S sum(S x) const {
     buf[l] = x;
     sync();
@@ -56,9 +67,26 @@ struct HostTeam {
     return r;
   }
 };
+
+struct Job {
+  const croc::Desc<double>* d;
+  const double* kp;
+  croc::Arr<double> W;
+  Fibers* f;
+  double* buf;
+  int n;
+};
+Job* job;
+
+void lane_main(int l) {
+  croc::node_body(HostTeam{l, job->n, job->f, job->buf}, *job->d, job->kp,
+                  job->W);
+  job->f->done[l] = 1;
+}
 }  // namespace
 
-// -1 if the workspace size differs from the kernel's layout
+// -1 if the workspace size differs from the kernel's layout, -2 if a lane
+// ended while others waited at a sync
 extern "C" int node_host_f64(
     int team, int N, int B, int ws, const int* meta, const double* robot,
     const double* par, const double* x, const double* u, double* Fx,
@@ -72,19 +100,36 @@ extern "C" int node_host_f64(
   const int nx = d.nq() + d.nv(), nu = d.nu();
   std::vector<double> work(ws), buf(team);
   const croc::Arr<double> W{work.data(), 1};
+  Fibers f;
+  f.ctx.resize(team);
+  f.done.resize(team);
+  std::vector<std::vector<char>> stacks(team, std::vector<char>(1 << 20));
   for (int n = 0; n < N; ++n) {
     std::fill(work.begin(), work.end(),
               std::numeric_limits<double>::quiet_NaN());
     for (int i = 0; i < nx; ++i) work[L.x + i] = x[(long)i * N + n];
     for (int i = 0; i < nu; ++i) work[L.u + i] = u[(long)i * N + n];
-    const double* kp = par + (long)(n / B) * d.P();
-    std::barrier<> bar(team);
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < team; ++l)
-      lanes.emplace_back([&, l] {
-        croc::node_body(HostTeam{l, team, &bar, buf.data()}, d, kp, W);
-      });
-    for (auto& t : lanes) t.join();
+    Job j{&d, par + (long)(n / B) * d.P(), W, &f, buf.data(), team};
+    job = &j;
+    for (int l = 0; l < team; ++l) {
+      getcontext(&f.ctx[l]);
+      f.ctx[l].uc_stack.ss_sp = stacks[l].data();
+      f.ctx[l].uc_stack.ss_size = stacks[l].size();
+      f.ctx[l].uc_link = &f.main;
+      makecontext(&f.ctx[l], (void (*)())lane_main, 1, l);
+      f.done[l] = 0;
+    }
+    for (;;) {
+      for (int k = 0; k < team; ++k) {
+        const int l = n % 2 ? team - 1 - k : k;
+        if (!f.done[l]) swapcontext(&f.main, &f.ctx[l]);
+      }
+      int done = 0;
+      for (int l = 0; l < team; ++l) done += f.done[l];
+      if (done == team) break;
+      if (done) return -2;
+    }
+    const double* kp = j.kp;
     for (int o = 0; o < croc::O_N; ++o) {
       int R, C;
       croc::node_out_shape(d, o, R, C);
@@ -174,7 +219,7 @@ def test_node_methods_match_lanes(case, knot):
 def node_host(tmp_path_factory):
     """csrc/node_kernel.cu's per-node body (``node_body``, ``node_out``),
     built for the host by the C++ compiler that builds
-    native/urdf_loader.cpp, with a team of std::threads."""
+    native/urdf_loader.cpp, with a team of fibers."""
     cxx = shutil.which("g++") or shutil.which("c++")
     assert cxx, "a C++ compiler is needed (it also builds the URDF parser)"
     d = tmp_path_factory.mktemp("node_host")
@@ -192,9 +237,9 @@ def test_node_kernel_source_matches_jax(case, node_host, team):
     """The CUDA node kernel's math (descriptor, team primal, closed-form
     tangents over the lanes, Gauss-Newton by cost term, chain rule and the
     write pass's output mapping), run on the host by a team of 1 and of 32
-    threads over the same nodes, against the JAX lane code; dt=0 nodes give
+    lanes over the same nodes, against the JAX lane code; dt=0 nodes give
     Fx = I and Fu = 0 exactly.  Also checks the workspace size against the
-    C++ layout."""
+    C++ layout, and that every lane reaches every sync."""
     from crocoddyl_tpu_torch.ops import cuda_kernels as ck
     seg, x, u, B, (d_ref, x_ref, c_ref) = case
     x, u = x.contiguous(), u.contiguous()
@@ -213,7 +258,8 @@ def test_node_kernel_source_matches_jax(case, node_host, team):
     fn.restype = ctypes.c_int
     rc = fn(team, N, B, desc.node_ws, ptr(desc.meta), ptr(desc.robot),
             ptr(desc.par), ptr(x), ptr(u), *[ptr(t) for t in out.values()])
-    assert rc == 0, "workspace size differs from the kernel's layout"
+    assert rc == 0, {-1: "workspace size differs from the kernel's layout",
+                     -2: "a lane ended while others waited at a sync"}[rc]
     for f in FIELDS:
         assert max_rel(getattr(d_ref, f), out[f]) < 1e-10, f
     assert max_rel(x_ref, out["xnext"]) < 1e-12
