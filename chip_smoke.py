@@ -2,8 +2,8 @@
 """Drive the PyTorch port's two paths, the rest of ``solve``, the quadruped
 gaits, the MPC loop, the generic rigid-body node, the biped, humanoid and
 quadrotor of the model zoo, the segmented problems of the true impulse
-switch knot, the data-parallel fleet with the display and aot layers, and
-whole exported solves once on one NVIDIA GPU.
+switch knot, the data-parallel fleet with the display and aot layers,
+whole exported solves and batched solves once on one NVIDIA GPU.
 
 Phases (any failure exits non-zero; each prints its seconds):
 
@@ -68,7 +68,7 @@ Phases (any failure exits non-zero; each prints its seconds):
    and the generic passes, with the bar of tests/test_examples_golden.py
    (in ``goldens_worker``, beside phases 3-5);
    (c) the receding-horizon loop of examples/mpc_receding_horizon.py on
-   the T=108 walk in float32: a maxiter=60 plan, then 10 ticks of horizon
+   the T=108 walk in float32: a maxiter=60 plan, then 6 ticks of horizon
    rotation, shifted warm start and maxiter=1 replan (tick latency p50 and
    p90, the plant step timed apart, the kernel descriptors' share,
    launches per tick, no divergence), and 1 float64 tick against the
@@ -125,8 +125,8 @@ Phases (any failure exits non-zero; each prints its seconds):
    float64 (``maxiter=60``) on the card against the CPU; (c) the
    true-impulse CoP walk (examples/bipedal_walk_cop.py --impulse, T=60) as
    a float32 cold replan (every kernel at 0 launches) and in float64 on
-   the card against the CPU (``cost_tol`` from 1e-10); (d) 2 float32 MPC
-   ticks of ``rotate_segmented``, ``shift_warm_start`` and a replan on the
+   the card against the CPU (``cost_tol`` from 1e-10); (d) 1 float32 MPC
+   tick of ``rotate_segmented``, ``shift_warm_start`` and a replan on the
    reduced walk (p50, p90) and 1 float64 tick kernel against plain path;
    (e) the unicycle anchors with ``ms_chunk=8`` and
    ``parallel_riccati=True`` on the card against the CPU, and the
@@ -178,11 +178,33 @@ Phases (any failure exits non-zero; each prints its seconds):
    program's bytes, the export seconds and one CUDA-event time each of
    the eager solve and the program after a warm-up.  Every program of the
    phase is run once eagerly and then exported on the card in
-   ``exports_worker``, beside phases 3-5.
+   ``exports_worker``, beside phases 3-5;
+15. batched solves (``vmap_solve``, the counterpart of
+   ``jax.vmap(solve)``): (a) the six walks of
+   examples/baumgarte_grid_search.py (the ported example's grid, T=30,
+   contact gains Kv from 0 to 200) in float64, ``maxiter=3``, batched
+   against each problem's single solve on the card (the decisions and
+   xreg equal, cost rtol 1e-8, us max abs 1e-6), kernel 1 launched once
+   a batched linearization, no plain call; (b) the same six with
+   ``fused_scans=True``: the batched solve's launches of kernels 4 and 5
+   at least the single solve's that needs most and fewer than the six's
+   sum; kernels 4 and 5 over the six problems (one launch of P=6 CTAs)
+   bitwise equal to six single-problem launches on the same inputs, and
+   against their plain versions at phase 3's bars, a forced failure of
+   problem 5 (its gaps × 1e35) flagged by kernel and plain alike; (c) the
+   arm's Box-DDP of examples/boxfddp_vs_boxddp.py (T=60) over four
+   initial states through ``parallel.sharded_solve_x0`` on a one-rank
+   mesh: problem 0 (the example's x0) held to its golden (the bar of
+   tests/test_examples_golden.py:49-58), the others to their single
+   solves, no kernel launched; (a)-(c) in ``vmap_worker``, beside phases
+   3-5; (d) after phase 14: one float32 CUDA-event time each, after a
+   warm-up, of the six walks' batched ``maxiter=1`` replan against the
+   six single replans in series (default settings and ``fused_scans``),
+   and kernels 4 and 5 at P=6 beside their plain versions and bound.
 
-Two spawned processes, ``exports_worker`` and ``goldens_worker``, start
-after the build and end before phase 6: phases 3-5 time nothing, and
-phases 6-14 run with no other process on the card.  The anchors' seconds
+Three spawned processes, ``exports_worker``, ``goldens_worker`` and
+``vmap_worker``, start after the build and end before phase 6: phases 3-5
+time nothing, and phases 6-15 run with no other process on the card.  The anchors' seconds
 that the workers print are not metrics.
 
 The line before the last two is the ``kernels`` JSON object: for each of
@@ -190,13 +212,17 @@ the five kernels its launches on its lane's main path (and on each replan
 of phase 6, ``launches_surface``, per MPC tick, ``launches_mpc``, on
 phase 10's two generic solves, ``launches_generic``, on phase 11's
 solves, ``launches_zoo``, on phase 12's, ``launches_seg``, on each
-rank of phase 13, ``launches_fleet``, and on phase 14's float32 programs
-and float64 node-kind programs, ``launches_export``), its error against
+rank of phase 13, ``launches_fleet``, on phase 14's float32 programs
+and float64 node-kind programs, ``launches_export``, and on phase 15's
+batched solves, ``launches_vmap``), its error against
 the plain version, its time and the plain version's, and its bound: the
 larger of its bytes (inputs read once, outputs written once) over 3.35
 TB/s and its operations over 67 TFLOP/s (float32 outside the tensor cores;
 operations counted by a dispatch-level counter over the plain version at
-one node or one step, scaled by the shapes).
+one node or one step, scaled by the shapes); kernels 4 and 5 also over
+phase 15's six problems (``ms_p6``, ``plain_ms_p6``, ``bound_ms_p6``,
+``bound_by_p6``, and ``max_abs_err_p6_f64`` against the plain version in
+float64).
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one GPU).  The
 last line of standard output is ``{"ok": true, "device": {...}}``; the line
@@ -901,8 +927,8 @@ GAITS = {
 # two feet at once
 GAITS_F64 = ("jumping", "trotting")
 # examples/mpc_receding_horizon.py:65 runs 50; 20 and 3 until phase 14
-# came: the script's time limit
-MPC_TICKS = 10
+# came, 10 until phase 15: the script's time limit
+MPC_TICKS = 6
 # float64 ticks held to the plain path (~20 s each on the card's host): 3
 # until phase 14, 2 until its float64 node kinds
 MPC_F64_TICKS = 1
@@ -1797,7 +1823,7 @@ def zoo_anchors(torch, ck, dev, card):
 # Phase 12: segmented problems and the true impulse switch knot
 # ---------------------------------------------------------------------------
 
-SEG_TICKS = 2       # 10 until phase 13, 4 until phase 14: the time limit
+SEG_TICKS = 1       # 10, 4, 2 until phases 13, 14, 15: the time limit
 SEG_F64_TICKS = 1   # 2 until phase 14's float64 node kinds
 SEG_MAXITER = 60     # tests/test_gaits.py:113-116
 
@@ -2003,11 +2029,14 @@ def run_segments(torch, ck, dev, card, walk64, walk_ms):
     launches["seg_mpc_tick"] = {n: v / SEG_TICKS
                                 for n, v in all_launches(ck).items()}
     need(not any(plain_calls()), "segmented MPC: plain versions ran")
-    log(f"[seg] f32 MPC on the reduced true-impulse walk, {SEG_TICKS} ticks "
-        f"of rotate_segmented + shift_warm_start + replan: p50 "
-        f"{np.percentile(lat, 50):.2f} ms, p90 {np.percentile(lat, 90):.2f}"
-        f" ms; segments after the last tick {p.seg_lengths}; launches per "
-        f"tick {launches['seg_mpc_tick']}  ({card})")
+    # one tick is one sample: its time, not percentiles
+    lat_txt = (f"{lat[0]:.2f} ms" if len(lat) == 1 else
+               f"p50 {np.percentile(lat, 50):.2f} ms, p90 "
+               f"{np.percentile(lat, 90):.2f} ms")
+    log(f"[seg] f32 MPC on the reduced true-impulse walk, {SEG_TICKS} "
+        f"tick(s) of rotate_segmented + shift_warm_start + replan: "
+        f"{lat_txt}; segments after the last tick {p.seg_lengths}; launches "
+        f"per tick {launches['seg_mpc_tick']}  ({card})")
 
     def ticks64():
         p, xs, us, rows = to_dev(torch, small, dev, f64), k.xs, k.us, []
@@ -2531,6 +2560,326 @@ def finish_worker(handle, timeout=900):
     return value
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: batched solves (vmap_solve)
+# ---------------------------------------------------------------------------
+
+VMAP_MAXITER = 3     # the six walks' float64 solves, batched and single
+VMAP_ARM_X0S = 4     # the arm's initial states, the example's own first
+VMAP_DECISIONS = DECISIONS + ("xreg",)
+
+
+def vmap_walks(torch):
+    """The six walks of examples/baumgarte_grid_search.py (the ported
+    example's grid, T=30), float64 on the CPU: (problems, their batch,
+    xs0, us0)."""
+    from crocoddyl_tpu_torch.examples.baumgarte_grid_search import (
+        grid_problems)
+    return grid_problems()
+
+
+def vmap_same(torch, tag, batch, singles, rerun=None, cost_rtol=1e-8,
+              us_atol=1e-6):
+    """Each problem of the batched solution against its single solve: the
+    decisions equal, controls within ``us_atol`` and cost within
+    ``cost_rtol``, or, where a problem's cost misses it and ``rerun(i)``
+    re-solves problem i alone, within SENS_FACTOR times that solve's own
+    cost change under a DERIV_EPS change of its node derivatives (as
+    ``cost_tol``: the batch's products round otherwise than one
+    problem's).  Returns the worst (cost rtol, us max abs) and the cost's
+    tolerance."""
+    rcs, du = [], 0.0
+    for i, one in enumerate(singles):
+        for fld in VMAP_DECISIONS:
+            x, y = getattr(batch, fld)[i].cpu(), getattr(one, fld).cpu()
+            need(x.equal(y), f"{tag}: problem {i}: {fld} {x.tolist()} vs "
+                 f"{y.tolist()}")
+        rcs.append(float((batch.cost[i] - one.cost).abs() / one.cost.abs()))
+        du = max(du, float((batch.us[i] - one.us).abs().max()))
+    rc, tol = max(rcs), cost_rtol
+    if rc > cost_rtol and rerun is not None:
+        i = rcs.index(rc)
+        with perturbed_derivs(torch, DERIV_EPS):
+            pert = rerun(i)
+        sens = float((pert.cost - singles[i].cost).abs()
+                     / singles[i].cost.abs())
+        tol = max(cost_rtol, SENS_FACTOR * sens)
+        log(f"  [{tag}] problem {i}'s single solve moves its cost "
+            f"{sens:.3e} under a {DERIV_EPS:.0e} change of its node "
+            f"derivatives: cost tolerance {tol:.3e}")
+    need(rc <= tol and du <= us_atol,
+         f"{tag}: cost rtol {rc:.3e} (tol {tol:.1e}), us max abs {du:.3e}")
+    return rc, du, tol
+
+
+def _bits(t):
+    """A float tensor's bits (NaN equal to the same NaN)."""
+    import torch
+    if not t.is_floating_point():
+        return t
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def vmap_kernels_p(torch, ck, fsc, batch, probs, xs, us, dt, tag):
+    """Kernels 4 and 5 over the P problems of ``batch`` at (xs, us): one
+    launch each, bitwise against P single-problem launches on the same
+    inputs, and against their plain versions at phase 3's bars (float64:
+    ``_agree``), with a forced failure (problem P-1's gaps × 1e35) flagged
+    by kernel and plain alike.  Returns ({kernel: max abs against plain},
+    the launches' inputs)."""
+    from crocoddyl_tpu_torch.core.solvers.fddp import _calc_diff
+    from crocoddyl_tpu_torch.utils.struct import tree_map
+    P, T = xs.shape[0], xs.shape[1] - 1
+    dev = xs.device
+    derivs, dterm, fs, _ = _calc_diff(batch, xs, us, False)
+    # a regularization a problem, from phase 3's up (float32's Riccati
+    # pass needs REG_F32)
+    base = 1e-9 if dt == torch.float64 else REG_F32
+    reg = torch.tensor([base * 10.0 ** p for p in range(P)], dtype=dt,
+                       device=dev)
+    ric_in = (derivs, dterm, fs, reg, reg)
+    kr = ck.riccati_backward_b1(*ric_in)
+    k, K = kr[3], kr[4]
+    alpha = torch.tensor([0.5 ** p for p in range(P)], dtype=dt, device=dev)
+    ro_in = (batch.segment_knots, batch.x0, xs, us, k, K, fs, alpha)
+    ko = fsc.trial_rollout_fused(*ro_in)
+    fs_bad = fs.clone()
+    fs_bad[-1] *= 1e35
+    kf = fsc.trial_rollout_fused(*ro_in[:6], fs_bad, alpha)[-1]
+    torch.cuda.synchronize()
+    for p in range(P):
+        def at(tree, p=p):
+            return tree_map(lambda a: a[p], tree)
+        one = ck.riccati_backward_b1(at(derivs), at(dterm), fs[p], reg[p],
+                                     reg[p])
+        need(all(torch.equal(_bits(a[p]), _bits(b)) for a, b in zip(kr, one)),
+             f"{tag}: kernel 4 at P={P}, problem {p}, differs from its "
+             f"single launch")
+        one = fsc.trial_rollout_fused(probs[p].segments[0], batch.x0[p],
+                                      xs[p], us[p], k[p], K[p], fs[p],
+                                      alpha[p])
+        need(all(torch.equal(_bits(a[p]), _bits(b)) for a, b in zip(ko, one)),
+             f"{tag}: kernel 5 at P={P}, problem {p}, differs from its "
+             f"single launch")
+    log(f"  [{tag}] kernels 4 and 5 at P={P}: every output bitwise equal "
+        f"to {P} single-problem launches")
+    errs = {}
+    if dt == torch.float64:
+        pr = fsc.riccati_backward_fused_plain(*ric_in)
+        need(torch.equal(kr[-1], pr[-1]) and not bool(pr[-1].any()),
+             f"{tag}: Riccati failure flags {kr[-1].tolist()} vs "
+             f"{pr[-1].tolist()}")
+        errs["riccati_b1"] = _agree(tag, "riccati P", ("Vx", "Vxx", "Qu",
+                                                       "k", "K", "Quuk"),
+                                    kr[:-1], pr[:-1], None)
+        po = fsc.trial_rollout_fused_plain(*ro_in)
+        pf = fsc.trial_rollout_fused_plain(*ro_in[:6], fs_bad, alpha)[-1]
+        need(torch.equal(ko[-1], po[-1]) and not bool(po[-1].any()),
+             f"{tag}: rollout failure flags {ko[-1].tolist()}")
+        need(torch.equal(kf, pf) and kf.tolist() == [False] * (P - 1)
+             + [True], f"{tag}: forced failure of problem {P - 1}: kernel "
+             f"{kf.tolist()}, plain {pf.tolist()}")
+        errs["rollout_b1"] = _agree(tag, "rollout P", ("xs_try", "us_try",
+                                                       "x_last", "cost"),
+                                    ko[:-1], po[:-1], None)
+        log(f"  [{tag}] rollout P={P}: forced failure of problem {P - 1} "
+            f"flagged by kernel and plain, the others not")
+    return errs, (ric_in, ro_in)
+
+
+def run_vmap_checks(torch, ck, dev, card):
+    """Phase 15 (a)-(c) (see the module docstring).  Returns ({case:
+    {wrapper: launches}}, {kernel: max abs against plain at P=6})."""
+    from crocoddyl_tpu_torch import (SolverSettings, arm7, box_ddp_settings,
+                                     solve, vmap_solve)
+    from crocoddyl_tpu_torch.ops import fused_scans as fsc
+    from crocoddyl_tpu_torch.parallel import data_mesh, sharded_solve_x0
+    f64 = torch.float64
+    probs, batch, xs0, us0 = vmap_walks(torch)
+    P, T = len(probs), probs[0].T
+    probs = [to_dev(torch, p, dev, f64) for p in probs]
+    batch = to_dev(torch, batch, dev, f64)
+    xs_d, us_d = xs0.to(dev, f64), us0.to(dev, f64)
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        need(not any(plain_calls()), "vmap: plain versions ran")
+        return out, all_launches(ck)
+    launches = {}
+    for tag, st in (("default", SolverSettings(maxiter=VMAP_MAXITER)),
+                    ("fused_scans", SolverSettings(maxiter=VMAP_MAXITER,
+                                                   fused_scans=True))):
+        def run(p, st=st):
+            return solve(p, xs_d, us_d, st, device=dev)
+        t0 = time.perf_counter()
+        singles, each = zip(*(counted(lambda p=p: run(p)) for p in probs))
+        t1 = time.perf_counter()
+        sol, got = counted(lambda: vmap_solve(run)(batch))
+        t2 = time.perf_counter()
+        name = f"walks_{tag}"
+        rc, du, tol = vmap_same(torch, f"vmap {name}", sol, singles,
+                                lambda i: run(probs[i]))
+        launches[name] = got
+        node = got["node_calc_both"]
+        # one kernel-1 launch a batched linearization: one an iteration
+        # and the direction at the returned trajectory (maxiter > 1)
+        need(node == int(sol.iter.max()) + (VMAP_MAXITER > 1)
+             and node == max(e["node_calc_both"] for e in each),
+             f"vmap {name}: kernel 1 launches {node}, iterations "
+             f"{sol.iter.tolist()}")
+        for w in ("riccati_backward_b1", "trial_rollout_b1"):
+            n, ns = got[w], [e[w] for e in each]
+            if tag == "default":
+                need(n == 0 and not any(ns), f"vmap {name}: {w} {n}")
+            else:
+                need(max(ns) <= n < sum(ns),
+                     f"vmap {name}: {w} {n}, single solves {ns}")
+        need(got["riccati_backward"] == got["trial_rollout"] == 0,
+             f"vmap {name}: kernels 2, 3 launched {got}")
+        log(f"[vmap] f64 Baumgarte walks T={T}, P={P}, {tag}, "
+            f"maxiter={VMAP_MAXITER}: iterations {sol.iter.tolist()}, "
+            f"converged {sol.converged.tolist()}; each problem's decisions "
+            f"({', '.join(VMAP_DECISIONS)}) equal to its single solve's, "
+            f"cost rtol {rc:.3e} (tol {tol:.1e}), us max abs {du:.3e}; "
+            f"launches batched "
+            f"{got}, single solves {[tuple(e.values()) for e in each]}; no "
+            f"plain call; host clock: batched {t2 - t1:.1f} s, six single "
+            f"solves {t1 - t0:.1f} s (not metrics)")
+    xs = xs_d.expand(P, -1, -1).contiguous()
+    us = us_d.expand(P, -1, -1).contiguous()
+    errs, _ = vmap_kernels_p(torch, ck, fsc, batch, probs, xs, us, f64,
+                             "f64 P=6")
+    # (c) the arm's Box-DDP over four initial states on a one-rank mesh
+    arm, _, _ = arm_problem(torch, T=60, dt=2e-3)
+    lim = (0.15 * arm7().effort_limit).to(dev, f64)
+    rng = np.random.default_rng(0)
+    x0s = arm.x0[None].repeat(VMAP_ARM_X0S, 1)
+    x0s[1:, :7] += torch.tensor(0.05 * rng.standard_normal(
+        (VMAP_ARM_X0S - 1, 7)))
+    arm = to_dev(torch, arm, dev, f64)
+    x0s = x0s.to(dev)
+
+    def arm_solve(p):
+        return solve(p, settings=box_ddp_settings(maxiter=100), u_lb=-lim,
+                     u_ub=lim, device=dev)
+    sol, got = counted(lambda: sharded_solve_x0(
+        arm_solve, arm, data_mesh(device=dev))(x0s))
+    launches["arm_box_ddp"] = got
+    need(not any(got.values()), f"vmap arm: kernels launched {got}")
+    singles = [arm_solve(arm.replace(x0=x)) for x in x0s[1:]]
+    rc, du, _ = vmap_same(torch, "vmap arm", _first(sol, 1), singles)
+    with open(os.path.join(HERE, "tests", "golden.json")) as f:
+        golden = json.load(f)["boxfddp_vs_boxddp"]
+    rg = abs(float(sol.cost[0]) - golden["cost"]) / abs(golden["cost"])
+    need(bool(sol.converged[0]) == golden["converged"]
+         and abs(int(sol.iter[0]) - golden["iters"]) <= 1 and rg <= 1e-5,
+         f"vmap arm: problem 0 misses the golden: {int(sol.iter[0])} "
+         f"iterations, cost {float(sol.cost[0])!r}")
+    log(f"[vmap] f64 arm Box-DDP T=60 over {VMAP_ARM_X0S} initial states "
+        f"(sharded_solve_x0, one rank): problem 0 (the example's x0) "
+        f"converged {bool(sol.converged[0])} in {int(sol.iter[0])} "
+        f"iterations, cost {float(sol.cost[0])!r}, golden "
+        f"{golden['iters']}, {golden['cost']!r}: rtol {rg:.3e} (tol 1e-5, "
+        f"iterations within 1); problems 1-3 ({sol.iter[1:].tolist()} "
+        f"iterations) against their single solves: decisions equal, cost "
+        f"rtol {rc:.3e}, us max abs {du:.3e}; launches {got}  ({card})")
+    return launches, errs
+
+
+def _tables(d):
+    """A kernel descriptor's tables (what a kernel reads of its knots)."""
+    return d.meta, d.robot, d.par
+
+
+def _first(sol, start):
+    """The Solution's problems ``start:``."""
+    import dataclasses
+    return dataclasses.replace(sol, **{
+        f: getattr(sol, f)[start:] for f in ("cost", "us", "iter",
+                                             "steplength", "is_feasible",
+                                             "converged", "diverged",
+                                             "xreg")})
+
+
+def vmap_worker(device):
+    """Phase 15 (a)-(c) (``run_vmap_checks``) in a process of its own
+    (``start_worker``), beside phases 3-5: float64 checks, host-bound,
+    whose times are not metrics."""
+    import torch
+    from crocoddyl_tpu_torch.ops import cuda_kernels as ck
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return run_vmap_checks(torch, ck, torch.device(device), card_line())
+
+
+def run_vmap_times(torch, ck, dev, card, launches):
+    """Phase 15 (d): the six walks' float32 ``maxiter=1`` replans, batched
+    against the six in series (default settings and ``fused_scans``), one
+    CUDA-event time each after a warm-up; kernels 4 and 5 at P=6 timed
+    beside their plain versions (one run) and their bound.  Adds the
+    batched replans' launches to ``launches``; returns {kernel: {ms_p6,
+    plain_ms_p6, bound_ms_p6, bound_by_p6}}."""
+    from crocoddyl_tpu_torch import SolverSettings, solve, vmap_solve
+    from crocoddyl_tpu_torch.ops import fused_scans as fsc
+    f32 = torch.float32
+    probs, batch, xs0, us0 = vmap_walks(torch)
+    P, T = len(probs), probs[0].T
+    cpu_prob = probs[0]
+    probs = [to_dev(torch, p, dev, f32) for p in probs]
+    batch = to_dev(torch, batch, dev, f32)
+    xs_d, us_d = xs0.to(dev, f32), us0.to(dev, f32)
+    for tag, st in (("default", SolverSettings(maxiter=1)),
+                    ("fused_scans", SolverSettings(maxiter=1,
+                                                   fused_scans=True))):
+        def batched(st=st):
+            return vmap_solve(lambda p: solve(p, xs_d, us_d, st,
+                                              device=dev))(batch)
+
+        def series(st=st):
+            return [solve(p, xs_d, us_d, st, device=dev) for p in probs]
+        reset_counts()
+        sol = batched()     # the warm-up, counted
+        torch.cuda.synchronize()
+        launches[f"replan_{tag}_f32"] = all_launches(ck)
+        need(not any(plain_calls()) and bool(torch.isfinite(sol.cost).all()),
+             f"vmap f32 {tag}: plain calls or a non-finite cost")
+        b_ms = cuda_time(torch, batched, runs=1, warmup=False)
+        solve(probs[0], xs_d, us_d, st, device=dev)   # the series' warm-up
+        s_ms = cuda_time(torch, series, runs=1, warmup=False)
+        log(f"[vmap] time f32 six Baumgarte walks T={T}, {tag} replan "
+            f"(maxiter=1): batched {b_ms:.2f} ms, six single replans in "
+            f"series {s_ms:.2f} ms ({s_ms / b_ms:.2f} x); batched launches "
+            f"{launches[f'replan_{tag}_f32']}  ({card})")
+    xs = xs_d.expand(P, -1, -1).contiguous()
+    us = us_d.expand(P, -1, -1).contiguous()
+    _, (ric_in, ro_in) = vmap_kernels_p(torch, ck, fsc, batch, probs, xs,
+                                        us, f32, "f32 P=6")
+    ops = op_counts(torch, cpu_prob)
+    out = {}
+    for name, kfn, pfn, ins, n_ops in (
+            ("riccati_b1", lambda: ck.riccati_backward_b1(*ric_in),
+             lambda: fsc.riccati_backward_fused_plain(*ric_in),
+             (ric_in[0], ric_in[1].Lx, ric_in[1].Lxx, *ric_in[2:]),
+             (ops["riccati_term"] + T * ops["riccati_step"]) * P),
+            ("rollout_b1", lambda: fsc.trial_rollout_fused(*ro_in),
+             lambda: fsc.trial_rollout_fused_plain(*ro_in),
+             (ro_in[1], ro_in[2][:, :T], *ro_in[3:6], ro_in[6][:, :T],
+              ro_in[7], _tables(ck.descriptor(ro_in[0], dev, f32))),
+             ops["rollout_step"] * T * P)):
+        ms = cuda_time(torch, kfn)
+        pms = cuda_time(torch, pfn, runs=1, warmup=False)
+        n_bytes = nbytes(torch, ins, kfn())
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        log(f"[time] {name} kernel at P={P} (T={T}) {ms:.3f} ms, plain "
+            f"{pms:.3f} ms, bound {b_ms:.6f} ms by {b_by} ({n_bytes} B, "
+            f"{n_ops} operations)  ({card})")
+        out[name] = dict(ms_p6=ms, plain_ms_p6=pms, bound_ms_p6=b_ms,
+                         bound_by_p6=b_by)
+    return out
+
+
 def run_export(torch, ck, dev, card, p32, p64, xs0, us0, x0s, data):
     """Phase 14: the programs of ``export_programs``, exported by
     ``exports_worker`` (``data``: {key: (bytes, export seconds)}) and
@@ -2738,6 +3087,7 @@ def main():
     # phase 6
     exports_run = start_worker(exports_worker)
     goldens_run = start_worker(goldens_worker)
+    vmap_run = start_worker(vmap_worker)
 
     # ---- 3. kernels against their plain versions -------------------------
     small, xs0_s, us0_s = build_walk(torch, 3, 1)
@@ -2865,8 +3215,9 @@ def main():
     # the workers end before the timed phases start
     exports, generic = finish_worker(exports_run)
     zoo_anchor_launches = finish_worker(goldens_run)
-    phase_done("workers (14's exports, 9b, 10's anchors, 11b, beside "
-               "phases 3-5)")
+    vmap_launches, errs_p6 = finish_worker(vmap_run)
+    phase_done("workers (14's exports, 9b, 10's anchors, 11b, 15 (a)-(c), "
+               "beside phases 3-5)")
 
     # ---- 6. solver surface ----------------------------------------------
     # Box-FDDP with the URDF's effort limits from the rollout of the
@@ -3058,8 +3409,7 @@ def main():
     N_lane, N_b1 = inp["x_n"].shape[-1], b1_in["node_b1"][1].shape[-1]
 
     def tables(seg):
-        d = ck.descriptor(seg, dev, f32)
-        return d.meta, d.robot, d.par
+        return _tables(ck.descriptor(seg, dev, f32))
 
     # the step length and the regularization as the solvers pass them: 0-d
     # tensors on the card
@@ -3200,6 +3550,11 @@ def main():
     exported = run_export(torch, ck, dev, card, p32, p64, xs0, us0, x0s,
                           exports)
     phase_done("export")
+
+    # ---- 15. batched solves (vmap_solve) ---------------------------------
+    # (a)-(c) ran in vmap_worker beside phases 3-5; (d) here
+    times_p6 = run_vmap_times(torch, ck, dev, card, vmap_launches)
+    phase_done("vmap")
     for k in kernels:
         k["launches_mpc"] = per_tick[WRAPPER[k["name"]]]
         k["launches_generic"] = {a: n[WRAPPER[k["name"]]]
@@ -3212,6 +3567,11 @@ def main():
                                for a, n in fleet.items()}
         k["launches_export"] = {a: n[WRAPPER[k["name"]]]
                                 for a, n in exported.items()}
+        k["launches_vmap"] = {a: n[WRAPPER[k["name"]]]
+                              for a, n in vmap_launches.items()}
+        if k["name"] in times_p6:
+            k.update(times_p6[k["name"]],
+                     max_abs_err_p6_f64=errs_p6[k["name"]])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

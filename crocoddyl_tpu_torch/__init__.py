@@ -24,8 +24,10 @@ passes otherwise, with a plain PyTorch version of each kernel for CPU
 tensors.  Two oracles check it: the dense KKT step
 (``core/solvers/kkt``) and finite differences (``utils/numdiff``).  Both
 entry points run on the CUDA device unless the caller passes
-``device="cpu"``.  ``parallel`` shards a batch of problems over GPUs, one
-process per card (``torch.distributed``); ``io.display`` renders
+``device="cpu"``.  ``vmap_solve`` runs ``solve`` over a batch of problems
+of one structure as one program (the counterpart of ``jax.vmap(solve)``).
+``parallel`` shards a batch of problems over GPUs, one process per card
+(``torch.distributed``), each solving its slice as one batch; ``io.display`` renders
 trajectories, ``utils.aot`` records models with ``torch.export``, and
 ``utils.callbacks`` prints, saves and plots solutions.  The package imports
 no JAX.
@@ -38,7 +40,8 @@ from .core.mpc import circular_append, rotate_segmented, shift_warm_start
 from .core.problem import ShootingProblem
 from .core.solvers.fddp import (Solution, SolverSettings, Trace,
                                 box_ddp_settings, box_fddp_settings,
-                                ddp_settings, fddp_settings, polish, solve)
+                                ddp_settings, fddp_settings, polish, solve,
+                                vmap_solve)
 from .core.solvers import boxqp, kkt
 from .core.solvers.fddp_batch import solve_batch
 from .dynamics import robots
@@ -63,4 +66,4 @@ __all__ = ["ActionModel", "CostFramePlacement", "CostFrameRotation",
            "plot_convergence", "plot_oc_solution", "polish", "print_trace",
            "quadrotor", "replicate_model", "robots", "rotate_segmented",
            "save_solution", "shift_warm_start", "solve", "solve_batch",
-           "stack_models", "state_vector"]
+           "stack_models", "state_vector", "vmap_solve"]

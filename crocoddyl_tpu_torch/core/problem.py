@@ -15,6 +15,16 @@ is evaluated through the lane functions and linearized by the node kernel
 (one launch per block); any other block (a generic ``RigidBodyNode``, an
 ``ImpulseNode``, another ``ActionModel``) by its own ``calc`` and
 derivatives, per knot under ``torch.func.vmap``.
+
+A batch of B problems of one structure (the problems ``jax.vmap`` sees) is
+one ``ShootingProblem`` whose every leaf carries a leading problem axis:
+x0 (B, nx), segment leaves (B, T_seg, ...), terminal leaves (B, ...)
+(``batch`` is B).  Its blocks are evaluated as the B·K knots of their B
+problems in a row: a lane block in one node-kernel launch over all of
+them, any other block under one ``torch.func.vmap`` over its B·K rows.  A
+lane node reads one robot for every knot, so a batch whose robot leaves
+differ across its problems (a mass sweep) takes every block by the
+generic path.
 """
 
 from __future__ import annotations
@@ -34,19 +44,30 @@ def _lane_node(model) -> bool:
     return fused_node.supports(model)
 
 
-def _seg_len(model) -> int:
-    return tree_leaves(model)[0].shape[0]
+def _seg_len(model, lead=0) -> int:
+    return tree_leaves(model)[0].shape[lead]
 
 
-def node_calc(seg, xs: torch.Tensor, us: torch.Tensor, knots=None):
+def _flat(tree):
+    """A batch's (B, K, ...) leaves as (B·K, ...): the knots of B problems
+    in a row."""
+    return tree_map(lambda l: l.reshape((-1,) + l.shape[2:]), tree)
+
+
+def _unflat(tree, B):
+    return tree_map(lambda l: l.reshape((B, -1) + l.shape[1:]), tree)
+
+
+def node_calc(seg, xs: torch.Tensor, us: torch.Tensor, knots=None,
+              lanes=None):
     """(xnext (N, nx), cost (N,)) of the K-knot stack ``seg`` at the rows
     of xs (N, nx), us (N, nu), or of its knots lo:hi with ``knots`` =
-    (lo, hi): for a lane node one plain lane primal
+    (lo, hi): for a lane node (or as ``lanes`` says) one plain lane primal
     (``ops/fused_node.calc_primal``) of N = K·A nodes, node n at knot
     n // A; otherwise (N = K) each knot's own ``calc`` under
     ``torch.func.vmap``."""
     from ..ops import fused_node as fn
-    if _lane_node(seg):
+    if _lane_node(seg) if lanes is None else lanes:
         xn, c = fn.calc_primal(seg, xs.T, us.T, *(knots or ()))
         return xn.T, c
     if knots is not None:
@@ -60,8 +81,10 @@ _POINT = {"calc_one": "calc", "calc_terminal_one": "calc_terminal"}
 
 def _rows_eager(model, method, batched, *args):
     if method == "calc_diff_terminal":
-        x = args[0]
-        return model.calc_diff_terminal(x), model.calc_terminal(x)
+        def f(m, x):
+            return m.calc_diff_terminal(x), m.calc_terminal(x)
+        return torch.func.vmap(f)(model, *args) if batched else f(model,
+                                                                  *args)
     if method in _POINT:
         return getattr(model, _POINT[method])(*args)
 
@@ -158,13 +181,19 @@ class ShootingProblem(PyTreeNode):
     terminal: Any
 
     @property
+    def batch(self):
+        """B for a batch of problems (x0 (B, nx)), None for one problem."""
+        return self.x0.shape[0] if self.x0.dim() == 2 else None
+
+    @property
     def segments(self):
         return (self.running if isinstance(self.running, tuple)
                 else (self.running,))
 
     @property
     def seg_lengths(self):
-        return tuple(_seg_len(s) for s in self.segments)
+        lead = 0 if self.batch is None else 1
+        return tuple(_seg_len(s, lead) for s in self.segments)
 
     @property
     def T(self) -> int:
@@ -182,8 +211,24 @@ class ShootingProblem(PyTreeNode):
     def on_lanes(self) -> bool:
         """True iff the problem is one segment and both stacks go through
         the lane functions and the node kernel."""
-        return (len(self.segments) == 1 and _lane_node(self.segments[0])
-                and _lane_node(self.terminal))
+        return (len(self.segments) == 1 and self._lane(self.segments[0])
+                and self._lane(self.terminal))
+
+    def _lane(self, model) -> bool:
+        """True for a node of this problem that goes through the lane
+        functions and the node kernel: a lane node, and in a batch one
+        whose robot is the same in every problem."""
+        return _lane_node(model) and self._robot_shared
+
+    @control.cached_property
+    def _robot_shared(self):
+        """False for a batch whose lane nodes' robot leaves differ across
+        its problems (read once per batch object)."""
+        if self.batch is None:
+            return True
+        same = [(l == l[:1]).all() for m in (*self.segments, self.terminal)
+                if _lane_node(m) for l in tree_leaves(m.state_.model)]
+        return not same or bool(torch.stack(same).all())
 
     def _seg_slices(self):
         """[(first knot, end knot)] of each segment."""
@@ -215,13 +260,17 @@ class ShootingProblem(PyTreeNode):
         several segments is one model over its concatenated knots (built
         once per problem object, so the node kernel's descriptor is built
         once too), with the knots' indices in the horizon; a problem of
-        one group takes its knots in order (None)."""
+        one group takes its knots in order (None).  In a batch the block
+        holds the B·K knots of its B problems in a row."""
         segs, slices = self.segments, self._seg_slices()
         groups = self._seg_groups
         out = []
+        ax = 0 if self.batch is None else 1
         for idxs in groups:
             block = (segs[idxs[0]] if len(idxs) == 1 else tree_map(
-                lambda *ls: torch.cat(ls), *[segs[si] for si in idxs]))
+                lambda *ls: torch.cat(ls, ax), *[segs[si] for si in idxs]))
+            if self.batch is not None:
+                block = _flat(block)
             rows = None
             if len(groups) > 1:
                 rows = torch.cat([torch.arange(*slices[si])
@@ -240,18 +289,24 @@ class ShootingProblem(PyTreeNode):
     def _grouped_apply(self, block_fn, xs, us):
         """``block_fn(block, xs_rows, us_rows)`` on every group's block at
         its knots' rows of xs (T, nx) and us (T, nu), outputs (pytrees with
-        a leading knot axis) put back in time order (problem.py:80-119)."""
+        a leading knot axis) put back in time order (problem.py:80-119).
+        In a batch xs (B, T, nx) and us (B, T, nu): the block's rows are
+        its B·K knots in a row, and the outputs (B, T, ...)."""
+        B, ax = self.batch, 0 if self.batch is None else 1
         outs = []
         for block, rows in self._blocks:
-            if rows is None:
-                outs.append(block_fn(block, xs, us))
+            x, u = xs, us
+            if rows is not None:
+                x, u = xs.index_select(ax, rows), us.index_select(ax, rows)
+            if B is None:
+                outs.append(block_fn(block, x, u))
             else:
-                outs.append(block_fn(block, xs.index_select(0, rows),
-                                     us.index_select(0, rows)))
+                outs.append(_unflat(block_fn(block, x.flatten(0, 1),
+                                             u.flatten(0, 1)), B))
         if self._time_order is None:
             return outs[0]
         order = self._time_order
-        return tree_map(lambda *ls: torch.cat(ls).index_select(0, order),
+        return tree_map(lambda *ls: torch.cat(ls, ax).index_select(ax, order),
                         *outs)
 
     @control.cached_property
@@ -260,25 +315,45 @@ class ShootingProblem(PyTreeNode):
         (T+1, ...), for a one-segment problem: the nodes of one node-kernel
         launch (problem.py:171-184 convention).  Built once per problem
         object, so the kernel descriptor of ops/cuda_kernels.py is built
-        once too."""
+        once too.  In a batch, the B·(T+1) knots of its problems in a
+        row."""
+        if self.batch is not None:
+            return _flat(tree_map(lambda r, t: torch.cat([r, t[:, None]], 1),
+                                  self.segments[0], self.terminal_knot))
         return tree_map(lambda r, t: torch.cat([r, t]), self.segments[0],
                         self.terminal_knot)
 
     @control.cached_property
     def terminal_knot(self):
-        """The terminal node as one dt=0 knot (leaves (1, ...))."""
-        knot = tree_map(lambda l: l[None], self.terminal)
+        """The terminal node as one dt=0 knot (leaves (1, ...)); in a
+        batch, its B problems' terminals as B knots (leaves (B, ...))."""
+        knot = (self.terminal if self.batch is not None
+                else tree_map(lambda l: l[None], self.terminal))
         return knot.replace(dt=torch.zeros_like(knot.dt))
+
+    @control.cached_property
+    def segment_knots(self):
+        """The running knots of a one-segment batch, B·T in a row (what
+        the single-problem rollout kernel reads per problem); the segment
+        itself for one problem."""
+        seg = self.segments[0]
+        return seg if self.batch is None else _flat(seg)
 
     @control.cached_property
     def _knot_list(self):
         """The T running knots of every segment in time order for the
         sequential rollouts: (lanes, the segment, the knot's index in it,
         the knot as a single model, sliced once, or None for a lane
-        segment and under export, where ``model_rows`` slices it)."""
+        segment and under export, where ``model_rows`` slices it).  In a
+        batch the knot is its B problems' knots t (leaves (B, ...)), lane
+        or not."""
         out = []
         for seg in self.segments:
-            lanes = _lane_node(seg)
+            lanes = self._lane(seg)
+            if self.batch is not None:
+                out += [(lanes, seg, t, tree_map(lambda l: l[:, t], seg))
+                        for t in range(_seg_len(seg, 1))]
+                continue
             for t in range(_seg_len(seg)):
                 out.append((lanes, seg, t, None if lanes or control.exporting()
                             else tree_map(lambda l: l[t], seg)))
@@ -286,8 +361,13 @@ class ShootingProblem(PyTreeNode):
 
     def knot_calc(self, t: int, xs: torch.Tensor, us: torch.Tensor):
         """(xnext (N, nx), cost (N,)) of running knot t at the rows of xs
-        (N, nx), us (N, nu) (``node_calc`` of that knot)."""
+        (N, nx), us (N, nu) (``node_calc`` of that knot); in a batch, row r
+        belongs to problem r // (N / B)."""
         lanes, seg, i, knot = self._knot_list[t]
+        if self.batch is not None:
+            if lanes:
+                return node_calc(knot, xs, us)
+            return _rows(self._repeat(knot, xs), "calc", True, xs, us)
         if lanes:
             return node_calc(seg, xs, us, (i, i + 1))
         # under export the op slices the knot off its segment's leaves
@@ -296,6 +376,25 @@ class ShootingProblem(PyTreeNode):
             xn, c = _rows(model, "calc_one", False, xs[0], us[0], knot=k)
             return xn[None], c[None]
         return _rows(model, "calc", False, xs, us, knot=k)
+
+    def _repeat(self, model, xs):
+        """A batch's per-problem ``model`` (leaves (B, ...)) repeated to
+        the N rows of xs, N / B rows a problem."""
+        A = xs.shape[0] // self.batch
+        return model if A == 1 else tree_map(
+            lambda l: l.repeat_interleave(A, 0), model)
+
+    def terminal_calc(self, xs: torch.Tensor) -> torch.Tensor:
+        """Terminal costs (N,) at the rows of xs (N, nx) (``terminal_calc``
+        of the terminal); in a batch, row r belongs to problem
+        r // (N / B)."""
+        if self.batch is None:
+            return terminal_calc(self.terminal, xs)
+        if self._lane(self.terminal):
+            return node_calc(self.terminal_knot, xs,
+                             xs.new_zeros((xs.shape[0], self.nu)))[1]
+        return _rows(self._repeat(self.terminal, xs), "calc_terminal", True,
+                     xs)
 
     def calc(self, xs: torch.Tensor, us: torch.Tensor):
         """(xnexts (T, nx), costs (T+1,)) at the trajectory, costs[T] the
@@ -318,21 +417,20 @@ class ShootingProblem(PyTreeNode):
         ``calc_both`` under ``torch.func.vmap``; a lane terminal is one dt=0
         knot, any other one the model's ``calc_diff_terminal`` and
         ``calc_terminal``.  A lane terminal's Lu, Lxu and Luu are zeroed
-        (problem.py:181-183).  Leaves are contiguous."""
+        (problem.py:181-183).  Leaves are contiguous.  In a batch, xs
+        (B, T+1, nx) and us (B, T, nu), and every output carries the
+        leading problem axis: one node-kernel launch over the batch's
+        B·(T+1) knots where the problem is on the lanes."""
         T = self.T
+        if self.batch is not None:
+            return self._calc_diff_batch(xs, us)
         if self.on_lanes:
             u_all = torch.cat([us, us.new_zeros((1, us.shape[1]))])
             d, xnext_n, costs = self._lanes(self.knots, xs, u_all)
             derivs = tree_map(lambda a: a[:T], d)
             return (derivs, self._lane_terminal(tree_map(lambda a: a[T], d)),
                     xnext_n[:T], costs)
-
-        def block(seg, x, u):
-            if _lane_node(seg):
-                return self._lanes(seg, x, u)
-            d, xn, c = _rows(seg, "calc_both", True, x, u)
-            return tree_map(torch.Tensor.contiguous, d), xn, c
-        derivs, xnexts, costs = self._grouped_apply(block, xs[:T], us)
+        derivs, xnexts, costs = self._grouped_apply(self._block, xs[:T], us)
         term = self.terminal
         if _lane_node(term):
             d1, _, cterm = self._lanes(self.terminal_knot, xs[-1:],
@@ -342,6 +440,34 @@ class ShootingProblem(PyTreeNode):
             dterm, cterm = _rows(term, "calc_diff_terminal", False, xs[-1])
             cterm = cterm[None]
         return derivs, dterm, xnexts, torch.cat([costs, cterm])
+
+    def _block(self, seg, x, u):
+        """(derivs, xnext, cost) of a block's knots at the rows x, u."""
+        if self._lane(seg):
+            return self._lanes(seg, x, u)
+        d, xn, c = _rows(seg, "calc_both", True, x, u)
+        return tree_map(torch.Tensor.contiguous, d), xn, c
+
+    def _calc_diff_batch(self, xs, us):
+        """``calc_diff_full`` of a batch: every output (B, ...)."""
+        T, B = self.T, self.batch
+        if self.on_lanes:
+            u_all = torch.cat([us, us.new_zeros((B, 1, us.shape[-1]))], 1)
+            d, xnext_n, costs = _unflat(self._lanes(
+                self.knots, xs.flatten(0, 1), u_all.flatten(0, 1)), B)
+            derivs = tree_map(lambda a: a[:, :T].contiguous(), d)
+            return (derivs, self._lane_terminal(tree_map(
+                lambda a: a[:, T].contiguous(), d)), xnext_n[:, :T], costs)
+        derivs, xnexts, costs = self._grouped_apply(self._block, xs[:, :T],
+                                                    us)
+        if self._lane(self.terminal):
+            dterm, _, cterm = self._lanes(self.terminal_knot, xs[:, -1],
+                                          xs.new_zeros((B, self.nu)))
+            dterm = self._lane_terminal(dterm)
+        else:
+            dterm, cterm = _rows(self.terminal, "calc_diff_terminal", True,
+                                 xs[:, -1])
+        return derivs, dterm, xnexts, torch.cat([costs, cterm[:, None]], 1)
 
     @staticmethod
     def _lanes(seg, xs, us):

@@ -36,71 +36,88 @@ class BoxQPSolution(PyTreeNode):
 
 
 def _masked_system(H, free, reg):
-    Fo = free[:, None] & free[None, :]
+    Fo = free[..., :, None] & free[..., None, :]
     A = torch.where(Fo, H, torch.zeros_like(H))
     one = torch.ones_like(free, dtype=H.dtype)
-    return A + torch.diag(torch.where(free, reg * one, one))
+    return A + torch.diag_embed(torch.where(free, reg * one, one))
+
+
+def _dot(a, b):
+    return a @ b if a.dim() == 1 else (a[..., None, :] @ b[..., :, None])[
+        ..., 0, 0]
 
 
 def _quad(H, q, x):
-    return 0.5 * x @ (H @ x) + q @ x
+    return 0.5 * _dot(x, control.mv(H, x)) + _dot(q, x)
 
 
 def solve(H: torch.Tensor, q: torch.Tensor, lb: torch.Tensor,
           ub: torch.Tensor, xinit: torch.Tensor, maxiter: int = 100,
           th_acceptstep: float = 0.1, th_grad: float = 1e-9,
-          reg: float = 0.0, n_alphas: int = 10) -> BoxQPSolution:
-    """BoxQP solve (defaults per box-qp.hpp:92; boxqp.py:44-104)."""
+          reg: float = 0.0, n_alphas: int = 10,
+          active=None) -> BoxQPSolution:
+    """BoxQP solve (defaults per box-qp.hpp:92; boxqp.py:44-104).  With a
+    leading batch axis on every input (H (B, n, n), the others (B, n)), B
+    QPs at once: one loop whose QPs stop at their own iterations
+    (``control.while_loop``'s batched rule); ``active`` (B,) marks the QPs
+    to solve, the others start done and their outputs are not to be
+    read."""
     dt, dev = H.dtype, H.device
-    n = H.shape[-1]
+    n, nb = H.shape[-1], H.dim() - 2
     alphas = torch.tensor([2.0 ** (-k) for k in range(n_alphas)], dtype=dt,
                           device=dev)
     x = torch.clamp(xinit, lb, ub)
 
     def sets(x):
-        g = q + H @ x
+        g = q + control.mv(H, x)
         clamped = ((x == lb) & (g > 0)) | ((x == ub) & (g < 0))
         return g, ~clamped
 
     def body(c):
         x, it, done, failed = c
         g, free = sets(x)
-        conv = (g.abs().max() <= th_grad) | ~free.any()
+        conv = ((control.per_problem(g.abs(), nb, "max") <= th_grad)
+                | ~free.any(-1))
         L = chol(_masked_system(H, free, reg))
-        failed = failed | torch.isnan(L).any()
-        rhs = torch.where(free, -(q + H @ torch.where(free,
-                                                      torch.zeros_like(x), x)),
-                          torch.zeros_like(x))
+        failed = failed | control.per_problem(torch.isnan(L), nb, "any")
+        rhs = torch.where(free, -(q + control.mv(H, torch.where(
+            free, torch.zeros_like(x), x))), torch.zeros_like(x))
         dz = cho_solve(L, rhs)
         dx = torch.where(free, dz - x, torch.zeros_like(x))
         fold = _quad(H, q, x)
         # the ten trials as rows
-        xnews = torch.clamp(x + alphas[:, None] * dx, lb, ub)
-        fnew = 0.5 * ((xnews @ H.T) * xnews).sum(-1) + xnews @ q
-        ok = fold - fnew > th_acceptstep * ((x - xnews) @ g)
-        first = control.pick(xnews, torch.argmax(ok.to(torch.int32)))
-        xnew = torch.where(conv, x, torch.where(ok.any(), first, x))
+        xnews = torch.clamp(x[..., None, :] + alphas[:, None]
+                            * dx[..., None, :], lb[..., None, :],
+                            ub[..., None, :])
+        fnew = 0.5 * ((xnews @ H.mT) * xnews).sum(-1) + control.mv(xnews, q)
+        ok = fold[..., None] - fnew > th_acceptstep * control.mv(
+            x[..., None, :] - xnews, g)
+        first = control.pick(xnews, torch.argmax(ok.to(torch.int32), -1))
+        step = control.lanes(ok.any(-1), x)
+        xnew = torch.where(control.lanes(conv, x), x,
+                           torch.where(step, first, x))
         done = conv | failed
         # the body is a function of x alone while the loop runs: an
         # iteration that leaves x as it was repeats itself up to maxiter (no
         # exit test passes: one clamped and one free coordinate keep max|g|
         # above th_grad), so the count jumps there and the loop ends
-        fixed = ~done & (xnew == x).all()
+        fixed = ~done & (xnew == x).all(-1)
         it = torch.where(fixed, torch.full_like(it, maxiter), it + 1)
         return xnew, it, done, failed
 
-    zero = torch.zeros((), dtype=torch.bool, device=dev)
+    bs = H.shape[:nb]
+    zero = torch.zeros(bs, dtype=torch.bool, device=dev)
     x, it, _, failed = control.while_loop(
         lambda c: (c[1] < maxiter) & ~c[2], body,
-        (x, torch.zeros((), dtype=torch.int32, device=dev), zero,
-         zero.clone()))
+        (x, torch.zeros(bs, dtype=torch.int32, device=dev),
+         zero if active is None else ~active, zero.clone()))
 
     # final sets and the free-block inverse for the caller (BoxDDP gains)
     _, free = sets(x)
     L = chol(_masked_system(H, free, reg))
-    failed = failed | torch.isnan(L).any()
-    Ainv = cho_solve(L, torch.eye(n, dtype=dt, device=dev))
-    Hff_inv = torch.where(free[:, None] & free[None, :], Ainv,
+    failed = failed | control.per_problem(torch.isnan(L), nb, "any")
+    Ainv = cho_solve(L, torch.eye(n, dtype=dt, device=dev).expand(L.shape))
+    Hff_inv = torch.where(free[..., :, None] & free[..., None, :], Ainv,
                           torch.zeros_like(Ainv))
     return BoxQPSolution(x=x, free=free, Hff_inv=Hff_inv, failed=failed,
                          iterations=it)

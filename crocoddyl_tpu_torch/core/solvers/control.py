@@ -26,6 +26,15 @@ Values a solver caches on a problem object (``cached``: the stacked knots,
 the kernel descriptors) are kept for the duration of one export in a table
 of their own, and only outside every body, so a cached tensor always
 belongs to the outermost trace.
+
+A solver that runs over a batch of B problems at once (``fddp.solve`` of a
+batched problem) gives the loop and the branch a (B,) predicate, one
+decision per problem.  A 1-D predicate follows ``jax.vmap``'s batching rule
+of ``lax.while_loop`` and ``lax.cond``: the loop runs while any problem's
+predicate holds, and a problem whose predicate is false keeps its carry; a
+branch with a batched predicate selects per problem.  Each check is still
+one host read.  Every leaf of such a carry or branch output carries the
+leading problem axis.  A single problem's predicate is 0-d.
 """
 
 from __future__ import annotations
@@ -52,6 +61,36 @@ def export_scope():
         yield
     finally:
         _export_cache.clear()
+
+
+def lanes(p, x):
+    """The per-problem predicate or scalar ``p`` (B,) shaped to broadcast
+    against ``x`` (B, ...); ``p`` itself when it is 0-d."""
+    if p.dim() == 0:
+        return p
+    return p.reshape(p.shape + (1,) * (x.dim() - p.dim()))
+
+
+def select(p, new, old):
+    """``new`` where ``p`` holds and ``old`` elsewhere, leaf by leaf, ``p``
+    one decision per problem."""
+    return pytree.tree_map(lambda a, b: torch.where(lanes(p, b), a, b), new,
+                           old)
+
+
+def per_problem(x, nb, op):
+    """``op`` ("sum", "max" or "any") over all of ``x`` but its leading
+    ``nb`` problem axes: one value a problem of a batch, or one for all of
+    ``x`` (``nb`` 0)."""
+    if nb == 0:
+        return getattr(x, op)()
+    x = x.reshape(x.shape[:nb] + (-1,))
+    return (x.amax if op == "max" else getattr(x, op))(-1)
+
+
+def mv(M, v):
+    """M·v over leading axes (``M @ v`` for one vector)."""
+    return M @ v if v.dim() == 1 else (M @ v[..., None])[..., 0]
 
 
 def cached(obj, key, build):
@@ -92,8 +131,11 @@ class cached_property:
 
 def pick(a, i):
     """``a[i]`` for a 0-d integer tensor ``i``, as ``index_select`` (an
-    exporter may otherwise read ``i`` on the host as a Python index)."""
-    return a.index_select(0, i.reshape(1))[0]
+    exporter may otherwise read ``i`` on the host as a Python index); for
+    (B,) indices ``i`` of a batch, row ``i[b]`` of problem b's ``a[b]``."""
+    if i.dim() == 0:
+        return a.index_select(0, i.reshape(1))[0]
+    return a[torch.arange(i.shape[0], device=i.device), i]
 
 
 def _trace(fn, args):
@@ -185,8 +227,17 @@ def while_loop(cond_fn, body_fn, carry):
     """``while cond_fn(carry): carry = body_fn(carry)``; ``carry`` is a
     pytree of tensors whose shapes and dtypes ``body_fn`` keeps."""
     if not exporting():
-        while bool(cond_fn(carry)):
+        p = cond_fn(carry)
+        if p.dim() == 1:
+            # jax.vmap's rule: run while any problem's predicate holds; a
+            # problem whose predicate is false keeps its carry
+            while bool(p.any()):
+                carry = select(p, body_fn(carry), carry)
+                p = cond_fn(carry)
+            return carry
+        while bool(p):
             carry = body_fn(carry)
+            p = cond_fn(carry)
         return carry
     from torch._higher_order_ops.while_loop import while_loop_op
     flat, spec = pytree.tree_flatten(carry)
@@ -213,6 +264,15 @@ def cond(pred, true_fn, false_fn, operands=()):
     """``true_fn(operands)`` if ``pred`` else ``false_fn(operands)``; the
     two return pytrees of the same structure, shapes and dtypes."""
     if not exporting():
+        if pred.dim() == 1:
+            # jax.vmap's rule for a batched predicate: both branches, one
+            # selected per problem (only one runs where all agree)
+            some, every = torch.stack([pred.any(), pred.all()]).tolist()
+            if not some:
+                return false_fn(operands)
+            if every:
+                return true_fn(operands)
+            return select(pred, true_fn(operands), false_fn(operands))
         return true_fn(operands) if bool(pred) else false_fn(operands)
     from torch._higher_order_ops.cond import cond_op
     flat, spec = pytree.tree_flatten(operands)

@@ -26,6 +26,10 @@ The scan combines elements in the order of JAX's ``lax.associative_scan``
 packages round alike.  The ``(I + C·J)`` solves are ``torch.linalg.solve``
 (LU); the factorizations of Luu and Quu are the Jacobi-equilibrated
 Cholesky of ``ops/smallchol``, NaN where they fail.
+
+A batch of problems (every tensor with a leading problem axis B) runs the
+same scan over time with the problems as one more batch axis of every
+combine: the time axis leads inside the pass.
 """
 
 from __future__ import annotations
@@ -115,14 +119,20 @@ def _eq_solve(L, d, B):
     return cho_solve(L, B / d[..., :, None]) / d[..., :, None]
 
 
-def _node_elements(derivs, fs_next, ureg):
+def _any(x, nb):
+    """``x.any()``, one per problem of the (T, B, ...) layout's axis 1."""
+    return x.any() if nb == 0 else x.transpose(0, 1).reshape(
+        x.shape[1], -1).any(-1)
+
+
+def _node_elements(derivs, fs_next, ureg, nb=0):
     """The knots' elements (parallel_riccati.py:93-123) and whether a Luu
     factorization failed."""
     nu = derivs.Luu.shape[-1]
     Luu = derivs.Luu + ureg * torch.eye(nu, dtype=derivs.Luu.dtype,
                                         device=derivs.Luu.device)
     L, d = _eq_chol(Luu)
-    failed = torch.isnan(L).any()
+    failed = _any(torch.isnan(L), nb)
     LuuinvLxuT = _eq_solve(L, d, _mT(derivs.Lxu))
     LuuinvLu = _eq_solve(L, d, derivs.Lu[..., None])
     LuuinvFuT = _eq_solve(L, d, _mT(derivs.Fu))
@@ -139,19 +149,28 @@ def _node_elements(derivs, fs_next, ureg):
 def backward_pass_parallel(derivs, dterm, fs, xreg, ureg):
     """The generic backward pass's drop-in for the non-box path
     (parallel_riccati.py:126-183): (Vx, Vxx, Qu, k, K, Quuk, failed) with
-    the same meaning as ``fddp._backward_pass``'s."""
+    the same meaning as ``fddp._backward_pass``'s; in a batch (fs
+    (B, T+1, ndx), xreg/ureg (B,)) every output carries the problem
+    axis."""
     dt, dev = fs.dtype, fs.device
-    ndx = fs.shape[-1]
+    ndx, nb = fs.shape[-1], fs.dim() - 2
     xreg = torch.as_tensor(xreg, dtype=dt, device=dev)
     ureg = torch.as_tensor(ureg, dtype=dt, device=dev)
+    if nb:
+        # time leads; the problems are one more batch axis of the combines
+        derivs = derivs.replace(**{f: getattr(derivs, f).transpose(0, 1)
+                                   for f in ("Fx", "Fu", "Lx", "Lu", "Lxx",
+                                             "Lxu", "Luu")})
+        fs = fs.transpose(0, 1)
+        xreg, ureg = xreg[:, None, None], ureg[:, None, None]
     eye = torch.eye(ndx, dtype=dt, device=dev)
     elems, failed0 = _node_elements(
-        derivs.replace(Lxx=derivs.Lxx + xreg * eye), fs[1:], ureg)
+        derivs.replace(Lxx=derivs.Lxx + xreg * eye), fs[1:], ureg, nb)
     # the terminal element carries no gap of its own: each knot's gap enters
     # its predecessor's element as the drift b
     Vxx_T = dterm.Lxx + xreg * eye
-    zero = fs.new_zeros((1, ndx, ndx))
-    term = _Elem(A=zero, b=fs.new_zeros((1, ndx)), C=zero,
+    zero = fs.new_zeros((1,) + fs.shape[1:-1] + (ndx, ndx))
+    term = _Elem(A=zero, b=fs.new_zeros((1,) + fs.shape[1:]), C=zero,
                  eta=dterm.Lx[None], J=Vxx_T[None])
     elems = _Elem(*(torch.cat([a, t]) for a, t in zip(elems, term)))
     # suffix products: reverse, inclusive scan, reverse
@@ -168,11 +187,15 @@ def backward_pass_parallel(derivs, dterm, fs, xreg, ureg):
     Qxu = derivs.Lxu + _mT(derivs.Fx) @ S_next @ derivs.Fu
     L, d = _eq_chol(Quu)
     # raiseIfNaN (solver-base.cpp:175-178): NaN, inf or >= 1e30 fails
-    failed = (failed0 | torch.isnan(L).any() | ~(Vx.abs().max() < 1e30)
-              | ~(Vxx.abs().max() < 1e30))
+    failed = (failed0 | _any(torch.isnan(L), nb)
+              | _any(~(Vx.abs() < 1e30), nb) | _any(~(Vxx.abs() < 1e30), nb)
+              if nb else failed0 | torch.isnan(L).any()
+              | ~(Vx.abs().max() < 1e30) | ~(Vxx.abs().max() < 1e30))
     K = _eq_solve(L, d, _mT(Qxu))
     kvec = _eq_solve(L, d, Qu[..., None])[..., 0]
     Quuk = _mv(Quu, kvec)
     # row-major, as the sequential pass returns them (kernel 5 reads them)
     out = (Vx, Vxx, Qu, kvec, K, Quuk)
+    if nb:
+        out = tuple(a.transpose(0, 1) for a in out)
     return (*(a.contiguous() for a in out), failed)

@@ -22,6 +22,13 @@
 // problem index 0 of 1.  xreg and ureg are read from device memory (two
 // 0-d tensors, so a solve's regularization never goes through the host);
 // ``failed`` is one byte.
+//
+// Over P problems (a batch of solves, the counterpart of the Pallas
+// kernel's batching rule under jax.vmap: one program instance a problem)
+// the launch is P CTAs; CTA p runs the same body on problem p's arrays,
+// which follow each other in memory (a leading problem axis), with its own
+// xreg[p] and ureg[p].  At P = 1 the launch and the arithmetic are the
+// single problem's.
 #include "riccati_pass.cuh"
 
 #ifdef __CUDACC__
@@ -40,15 +47,21 @@ riccati_b1_kernel(int Tn, int ndx, int nu, LaneStrides S, const T* Fx,
                   T* Vxx_o, T* Qu_o,
                   T* k_o, T* K_o, T* Quuk_o, unsigned char* failed_o) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const T xreg = *xreg_p, ureg = *ureg_p;
-  riccati_cta<T, NU>(BlockCta{}, AsyncPipe{}, Tn, 1, 0, ndx, nu, S, Fx, Fu, Lx,
-                 Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg, ureg, Vx_o, Vxx_o,
-                 Qu_o, k_o, K_o, Quuk_o, failed_o,
-                 reinterpret_cast<T*>(smem_raw));
+  // problem p's arrays: one problem's elements past problem p - 1's
+  const long long p = blockIdx.x, t = Tn, x = ndx, u = nu;
+  const T xreg = xreg_p[p], ureg = ureg_p[p];
+  riccati_cta<T, NU>(BlockCta{}, AsyncPipe{}, Tn, 1, 0, ndx, nu, S,
+                 Fx + p * t * x * x, Fu + p * t * x * u, Lx + p * t * x,
+                 Lu + p * t * u, Lxx + p * t * x * x, Lxu + p * t * x * u,
+                 Luu + p * t * u * u, LxT + p * x, LxxT + p * x * x,
+                 fs + p * (t + 1) * x, xreg, ureg, Vx_o + p * (t + 1) * x,
+                 Vxx_o + p * (t + 1) * x * x, Qu_o + p * t * u,
+                 k_o + p * t * u, K_o + p * t * u * x, Quuk_o + p * t * u,
+                 failed_o + p, reinterpret_cast<T*>(smem_raw));
 }
 
 template <class T, int NU>
-int launch_riccati_b1(int Tn, int ndx, int nu, const T* Fx, const T* Fu,
+int launch_riccati_b1(int P, int Tn, int ndx, int nu, const T* Fx, const T* Fu,
                       const T* Lx, const T* Lu, const T* Lxx, const T* Lxu,
                       const T* Luu, const T* LxT, const T* LxxT, const T* fs,
                       const T* xreg, const T* ureg, T* Vx, T* Vxx, T* Qu, T* k,
@@ -69,7 +82,7 @@ int launch_riccati_b1(int Tn, int ndx, int nu, const T* Fx, const T* Fu,
     S.ts[k] = step[k];
     S.es[k] = 1;
   }
-  riccati_b1_kernel<T, NU><<<1, kRiccatiB1Threads, smem, (cudaStream_t)stream>>>(
+  riccati_b1_kernel<T, NU><<<P, kRiccatiB1Threads, smem, (cudaStream_t)stream>>>(
       Tn, ndx, nu, S, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg,
       ureg, Vx, Vxx, Qu, k, K, Quuk, failed);
   return (int)cudaGetLastError();
@@ -78,7 +91,8 @@ int launch_riccati_b1(int Tn, int ndx, int nu, const T* Fx, const T* Fu,
 }  // namespace croc
 
 #define CROC_RICCATI_B1(NAME, T)                                             \
-  extern "C" int NAME(int Tn, int ndx, int nu, const T* Fx, const T* Fu,     \
+  extern "C" int NAME(int P, int Tn, int ndx, int nu, const T* Fx,          \
+                      const T* Fu,                                           \
                       const T* Lx, const T* Lu, const T* Lxx, const T* Lxu,  \
                       const T* Luu, const T* LxT, const T* LxxT,             \
                       const T* fs, const T* xreg, const T* ureg, T* Vx,      \
@@ -88,13 +102,15 @@ int launch_riccati_b1(int Tn, int ndx, int nu, const T* Fx, const T* Fu,
     auto launch = croc::riccati_nu_pad(nu) == 12                             \
                       ? croc::launch_riccati_b1<T, 12>                       \
                       : croc::launch_riccati_b1<T, 16>;                      \
-    return launch(Tn, ndx, nu, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, \
+    return launch(P, Tn, ndx, nu, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT,  \
+                  fs,                                                        \
                   xreg, ureg, Vx, Vxx, Qu, k, K, Quuk, failed, stream);      \
   }
 CROC_RICCATI_B1(croc_riccati_b1_f32, float)
 CROC_RICCATI_B1(croc_riccati_b1_f64, double)
 
-// CTAs, threads per CTA and dynamic shared memory of a launch
+// CTAs (of one problem; P problems launch P), threads per CTA and dynamic
+// shared memory of a launch
 extern "C" void croc_riccati_b1_shape(int ndx, int nu, int elem, int* out) {
   out[0] = 1;
   out[1] = croc::kRiccatiB1Threads;

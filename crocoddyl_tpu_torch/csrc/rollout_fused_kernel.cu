@@ -15,6 +15,14 @@
 // of reach.  The design's own floor is T × the critical path of one step's
 // primal on a warp (rollout_kernel.cu gives the link count).
 //
+// Over P problems (a batch of solves, the counterpart of the Pallas
+// kernel's batching rule under jax.vmap: one program instance a problem)
+// the launch is P CTAs: CTA p runs problem p, at its own α[p], from its
+// own x0, rows and knot parameters (a leading problem axis; xs and fs may
+// be the first T rows of (P, T+1, ...) arrays, so their problem strides
+// are arguments).  The descriptor's meta and robot are shared.  At P = 1
+// the launch and the arithmetic are the single problem's.
+//
 // Design: one CTA of one warp, B = 1 in kernel 3's layout (contiguous
 // rows).  The warp runs the node primal as kernel 3's warps do; the
 // descriptor is staged in shared memory once, and the knot parameters and
@@ -29,46 +37,57 @@ namespace croc {
 
 template <class T>
 __global__ void __launch_bounds__(32)
-rollout_b1_kernel(int Tn, int nmeta, int nrobot, int ws, const int* meta,
-                  const T* robot, const T* par, const T* x0, const T* xs,
-                  const T* us, const T* k, const T* K, const T* fs,
-                  const T* alpha_p, T* xs_try, T* us_try, T* x_last, T* cost,
-                  unsigned char* failed) {
-  const T alpha = *alpha_p;  // the step length, from device memory
-  rollout_cta<T, 1>(Tn, 1, nmeta, nrobot, ws, meta, robot, par, x0, xs, us,
-                    k, K, fs, alpha, xs_try, us_try, x_last, cost, failed);
+rollout_b1_kernel(int Tn, int nmeta, int nrobot, int npar, int ws, int nx,
+                  int nu, int ndx, long long xs_ps, long long fs_ps,
+                  const int* meta, const T* robot, const T* par, const T* x0,
+                  const T* xs, const T* us, const T* k, const T* K,
+                  const T* fs, const T* alpha_p, T* xs_try, T* us_try,
+                  T* x_last, T* cost, unsigned char* failed) {
+  // problem p's arrays, its knots' parameters and its step length
+  const long long p = blockIdx.x, t = Tn;
+  const T alpha = alpha_p[p];
+  rollout_cta<T, 1>(Tn, 1, nmeta, nrobot, ws, meta, robot,
+                    par + p * t * npar, x0 + p * nx, xs + p * xs_ps,
+                    us + p * t * nu, k + p * t * nu, K + p * t * nu * ndx,
+                    fs + p * fs_ps, alpha, xs_try + p * t * nx,
+                    us_try + p * t * nu, x_last + p * nx, cost + p,
+                    failed + p, 0);
 }
 
 template <class T>
-int launch_rollout_b1(int Tn, int nmeta, int nrobot, int P, int ws,
-                      const int* meta, const T* robot, const T* par,
-                      const T* x0, const T* xs, const T* us, const T* k,
-                      const T* K, const T* fs, const T* alpha, T* xs_try,
-                      T* us_try, T* x_last, T* cost, unsigned char* failed,
-                      void* stream) {
-  const int smem = (int)rollout_smem<T>(nmeta, nrobot, P, ws, 1);
+int launch_rollout_b1(int P, int Tn, int nmeta, int nrobot, int npar, int ws,
+                      int nx, int nu, int ndx, long long xs_ps,
+                      long long fs_ps, const int* meta, const T* robot,
+                      const T* par, const T* x0, const T* xs, const T* us,
+                      const T* k, const T* K, const T* fs, const T* alpha,
+                      T* xs_try, T* us_try, T* x_last, T* cost,
+                      unsigned char* failed, void* stream) {
+  const int smem = (int)rollout_smem<T>(nmeta, nrobot, npar, ws, 1);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         rollout_b1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
   }
-  rollout_b1_kernel<T><<<1, 32, smem, (cudaStream_t)stream>>>(
-      Tn, nmeta, nrobot, ws, meta, robot, par, x0, xs, us, k, K, fs,
-      alpha, xs_try, us_try, x_last, cost, failed);
+  rollout_b1_kernel<T><<<P, 32, smem, (cudaStream_t)stream>>>(
+      Tn, nmeta, nrobot, npar, ws, nx, nu, ndx, xs_ps, fs_ps, meta, robot,
+      par, x0, xs, us, k, K, fs, alpha, xs_try, us_try, x_last, cost,
+      failed);
   return (int)cudaGetLastError();
 }
 
 }  // namespace croc
 
 #define CROC_ROLLOUT_B1(NAME, T)                                             \
-  extern "C" int NAME(int Tn, int nmeta, int nrobot, int P, int ws,          \
-                      const int* meta, const T* robot, const T* par,         \
-                      const T* x0, const T* xs, const T* us, const T* k,     \
-                      const T* K, const T* fs, const T* alpha, T* xs_try,      \
-                      T* us_try, T* x_last, T* cost, unsigned char* failed,  \
-                      void* stream) {                                        \
-    return croc::launch_rollout_b1<T>(Tn, nmeta, nrobot, P, ws, meta, robot, \
+  extern "C" int NAME(int P, int Tn, int nmeta, int nrobot, int npar,        \
+                      int ws, int nx, int nu, int ndx, long long xs_ps,      \
+                      long long fs_ps, const int* meta, const T* robot,      \
+                      const T* par, const T* x0, const T* xs, const T* us,   \
+                      const T* k, const T* K, const T* fs, const T* alpha,   \
+                      T* xs_try, T* us_try, T* x_last, T* cost,              \
+                      unsigned char* failed, void* stream) {                 \
+    return croc::launch_rollout_b1<T>(P, Tn, nmeta, nrobot, npar, ws, nx,    \
+                                      nu, ndx, xs_ps, fs_ps, meta, robot,    \
                                       par, x0, xs, us, k, K, fs, alpha,      \
                                       xs_try, us_try, x_last, cost, failed,  \
                                       stream);                               \

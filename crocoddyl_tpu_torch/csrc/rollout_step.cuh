@@ -130,13 +130,14 @@ __host__ __device__ inline size_t rollout_smem(int nmeta, int nrobot, int P, int
 }
 
 // The body of a rollout CTA of WARPS warps, one problem per warp: stage the
-// descriptor, then each warp runs its problem's rollout.
+// descriptor, then each warp runs its problem's rollout: problem
+// blockIdx.x·WARPS + warp of B, or problem ``b`` where the caller names it.
 template <class T, int WARPS>
 __device__ void rollout_cta(int Tn, int B, int nmeta, int nrobot, int ws, const int* meta,
                             const T* robot, const T* par, const T* x0, const T* xs,
                             const T* us, const T* k, const T* K, const T* fs, T alpha,
                             T* xs_try, T* us_try, T* x_last, T* cost,
-                            unsigned char* failed) {
+                            unsigned char* failed, int b = -1) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* s_meta = reinterpret_cast<int*>(smem_raw);
   T* s_robot = reinterpret_cast<T*>(smem_raw + up4(nmeta) * sizeof(int));
@@ -147,7 +148,7 @@ __device__ void rollout_cta(int Tn, int B, int nmeta, int nrobot, int ws, const 
   T* s_par = s_robot + up4(nrobot);
   const int warp = threadIdx.x >> 5;
   T* s_ws = s_par + 2 * up4(d.P()) + warp * up4(ws);
-  const int b = blockIdx.x * WARPS + warp;
+  if (b < 0) b = blockIdx.x * WARPS + warp;
   rollout_problem(WarpTeam{}, AsyncPipe{}, (int)threadIdx.x, (int)blockDim.x, d, Tn, B,
                   b < B ? b : B - 1, b < B, par, s_par, s_ws, x0, xs, us, k, K, fs,
                   alpha, xs_try, us_try, x_last, cost, failed);

@@ -98,7 +98,7 @@ def build(verbose: bool = False) -> float:
             if not os.path.exists(so):
                 _build_log = _compile(so, verbose)
         lib = ctypes.CDLL(so)
-        P, I = ctypes.c_void_p, ctypes.c_int
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for t in ("f32", "f64"):
             fn = getattr(lib, f"croc_riccati_{t}")
             fn.argtypes = [I, I, I, I] + [P] * 20 + [P]
@@ -116,10 +116,10 @@ def build(verbose: bool = False) -> float:
             fn.argtypes = [I] * 5 + [P]
             fn.restype = None
             fn = getattr(lib, f"croc_riccati_b1_{t}")
-            fn.argtypes = [I, I, I] + [P] * 19 + [P]
+            fn.argtypes = [I] * 4 + [P] * 19 + [P]
             fn.restype = I
             fn = getattr(lib, f"croc_rollout_b1_{t}")
-            fn.argtypes = [I] * 5 + [P] * 15 + [P]
+            fn.argtypes = [I] * 9 + [L, L] + [P] * 15 + [P]
             fn.restype = I
         lib.croc_riccati_shape.argtypes = [I] * 4 + [P]
         lib.croc_riccati_shape.restype = None
@@ -275,13 +275,14 @@ def riccati_backward_op(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg,
     return Vx, Vxx, Qu, k, K, Quuk, failed.bool()
 
 
-def riccati_outs(T, ndx, nu, lane, like, flag=torch.bool):
+def riccati_outs(T, ndx, nu, lane, like, flag=torch.bool, lead=()):
     """Empty (Vx, Vxx, Qu, k, K, Quuk, failed) of a Riccati pass, with the
-    trailing lane axes ``lane`` ((B,) or ())."""
+    trailing lane axes ``lane`` ((B,) or ()) or the leading problem axes
+    ``lead`` ((P,) or ())."""
     def e(*s):
-        return like.new_empty(s + lane)
+        return like.new_empty(lead + s + lane)
     return (e(T + 1, ndx), e(T + 1, ndx, ndx), e(T, nu), e(T, nu),
-            e(T, nu, ndx), e(T, nu), like.new_empty(lane, dtype=flag))
+            e(T, nu, ndx), e(T, nu), like.new_empty(lead + lane, dtype=flag))
 
 
 RICCATI_SCHEMA = ("(Tensor Fx, Tensor Fu, Tensor Lx, Tensor Lu, Tensor Lxx, "
@@ -603,8 +604,8 @@ def _rollout_outs(x0, T, nu, flag=torch.bool):
 
 
 def _rollout_launch(name, meta, robot, par, x0, xs, us, k, K, fs, alpha, ws):
-    """Check and launch kernel 3 (``croc_rollout``, lanes) or 5
-    (``croc_rollout_b1``, one problem); returns its outputs."""
+    """Check and launch kernel 3 (``croc_rollout``, problems on lanes);
+    returns its outputs."""
     dt, dev = x0.dtype, x0.device
     T, nx, nu, ndx = us.shape[0], x0.shape[0], us.shape[1], fs.shape[1]
     lane = tuple(x0.shape[1:])
@@ -648,10 +649,11 @@ def _(meta, robot, par, x0, xs, us, k, K, fs, alpha, ws, leaves, spec):
     return _rollout_outs(x0, us.shape[0], us.shape[1])
 
 
-def as_scalar(v, like):
+def as_scalar(v, like, shape=()):
     """``v`` (a float or a tensor) as a 0-d tensor of like's dtype on its
-    device."""
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device).reshape(())
+    device, or as one per problem (``shape`` (P,))."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device).reshape(
+        shape)
 
 
 def trial_rollout(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha):
@@ -686,20 +688,23 @@ def riccati_backward_b1_op(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs,
                            xreg, ureg):
     """Kernel 4's CUDA implementation (the op ``riccati_backward_b1``):
     contiguous single-problem inputs, xreg and ureg 0-d tensors that the
-    kernel reads on the device."""
-    T, ndx = Fx.shape[0], fs.shape[1]
-    nu = Lu.shape[1]
+    kernel reads on the device; or P problems, every input with a leading
+    problem axis and xreg/ureg (P,): one launch of P CTAs, one problem
+    each."""
+    lead = tuple(xreg.shape)
+    T, ndx = Fx.shape[len(lead)], fs.shape[-1]
+    nu = Lu.shape[-1]
     dt, dev = fs.dtype, fs.device
     _riccati_dims("riccati_backward_b1", ndx, nu)
     ins = dict(Fx=Fx, Fu=Fu, Lx=Lx, Lu=Lu, Lxx=Lxx, Lxu=Lxu, Luu=Luu,
                LxT=LxT, LxxT=LxxT, fs=fs, xreg=xreg, ureg=ureg)
-    _check("riccati_backward_b1", ins, dt, dev, dict(
+    _check("riccati_backward_b1", ins, dt, dev, {k: lead + v for k, v in dict(
         Fx=(T, ndx, ndx), Fu=(T, ndx, nu), Lx=(T, ndx), Lu=(T, nu),
         Lxx=(T, ndx, ndx), Lxu=(T, ndx, nu), Luu=(T, nu, nu), LxT=(ndx,),
-        LxxT=(ndx, ndx), fs=(T + 1, ndx), xreg=(), ureg=()))
+        LxxT=(ndx, ndx), fs=(T + 1, ndx), xreg=(), ureg=()).items()})
     Vx, Vxx, Qu, k, K, Quuk, failed = riccati_outs(T, ndx, nu, (), fs,
-                                                    torch.uint8)
-    _launch("croc_riccati_b1", dt, dev, T, ndx, nu,
+                                                    torch.uint8, lead)
+    _launch("croc_riccati_b1", dt, dev, int(np.prod(lead)), T, ndx, nu,
             *[_ptr(t) for t in ins.values()],
             *[_ptr(t) for t in (Vx, Vxx, Qu, k, K, Quuk, failed)])
     riccati_backward_b1.launches += 1
@@ -712,19 +717,23 @@ _op_riccati_b1 = _custom_op("riccati_backward_b1", riccati_backward_b1_op,
 
 @_op_riccati_b1.register_fake
 def _(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, LxT, LxxT, fs, xreg, ureg):
-    return riccati_outs(Fx.shape[0], fs.shape[1], Lu.shape[1], (), fs)
+    return riccati_outs(Fx.shape[xreg.dim()], fs.shape[-1], Lu.shape[-1], (),
+                        fs, lead=tuple(xreg.shape))
 
 
 def riccati_backward_b1(derivs, dterm, fs, xreg, ureg):
     """CUDA twin of fused_scans.riccati_backward_fused_plain, through the op
     ``torch.ops.crocoddyl_tpu_torch.riccati_backward_b1``: derivs leaves
     (T, ...), dterm Lx (ndx,) / Lxx (ndx, ndx), fs (T+1, ndx); xreg and
-    ureg floats or 0-d tensors, read by the kernel on the device."""
-    _riccati_dims("riccati_backward_b1", fs.shape[1], derivs.Lu.shape[1])
+    ureg floats or 0-d tensors, read by the kernel on the device.  Over P
+    problems every tensor carries a leading problem axis, xreg/ureg
+    (P,)."""
+    _riccati_dims("riccati_backward_b1", fs.shape[-1], derivs.Lu.shape[-1])
     _on_card("riccati_backward_b1", fs)
+    lead = fs.shape[:-2]
     return torch.ops.crocoddyl_tpu_torch.riccati_backward_b1(
-        *riccati_args(derivs, dterm, fs), as_scalar(xreg, fs),
-        as_scalar(ureg, fs))
+        *riccati_args(derivs, dterm, fs), as_scalar(xreg, fs, lead),
+        as_scalar(ureg, fs, lead))
 
 
 riccati_backward_b1.launches = 0
@@ -734,16 +743,50 @@ riccati_backward_b1.launches = 0
 # Kernel 5: single-problem trial rollout
 # ---------------------------------------------------------------------------
 
+def _problem_stride(name, key, a, lead):
+    """The stride between a's problems: its trailing (T, n) block must be
+    contiguous (the prefix ``[:, :T]`` of a contiguous (P, T+1, n) tensor
+    is)."""
+    if a.stride()[len(lead):] != (a.shape[-1], 1):
+        raise ValueError(f"{name}: {key} has strides {a.stride()}; its "
+                         "steps must be contiguous rows")
+    return a.stride(0) if lead else 0
+
+
 def trial_rollout_b1_op(meta, robot, par, x0, xs, us, k, K, fs, alpha, ws,
                         leaves, spec):
     """Kernel 5's CUDA implementation (the op ``trial_rollout_b1``): the
     descriptor's tensors, x0 (nx,), xs (T, nx), us/k (T, nu), K (T, nu,
     ndx), fs (T, ndx), all contiguous; α a 0-d tensor; ``leaves`` and
-    ``spec`` are the CPU implementation's."""
-    out = _rollout_launch("croc_rollout_b1", meta, robot, par, x0, xs, us, k,
-                          K, fs, alpha, ws)
+    ``spec`` are the CPU implementation's.  Over P problems every array
+    has a leading problem axis (xs and fs may be the (P, T, ...) prefixes
+    of (P, T+1, ...) tensors), α is (P,) and ``par`` holds the P·T knots
+    problem by problem: one launch of P CTAs, one problem each."""
+    name = "trial_rollout_b1"
+    dt, dev = x0.dtype, x0.device
+    lead = tuple(x0.shape[:-1])
+    T, nx, nu, ndx = us.shape[-2], x0.shape[-1], us.shape[-1], fs.shape[-1]
+    P = int(np.prod(lead))
+    if P * T != par.shape[0]:
+        raise ValueError(f"{P} x {T} steps for {par.shape[0]} knots")
+    _check(name, dict(x0=x0, xs=xs, us=us, k=k, K=K, fs=fs, alpha=alpha,
+                      robot=robot, par=par), dt, dev,
+           {key: lead + v for key, v in dict(
+               xs=(T, nx), us=(T, nu), k=(T, nu), K=(T, nu, ndx),
+               fs=(T, ndx), alpha=()).items()}, strided=("xs", "fs"))
+    xs_ps = _problem_stride(name, "xs", xs, lead)
+    fs_ps = _problem_stride(name, "fs", fs, lead)
+    xs_try, us_try, x_last, cost, failed = (
+        x0.new_empty(lead + (T, nx)), x0.new_empty(lead + (T, nu)),
+        x0.new_empty(lead + (nx,)), x0.new_empty(lead),
+        x0.new_empty(lead, dtype=torch.uint8))
+    _launch("croc_rollout_b1", dt, dev, P, T, meta.numel(), robot.numel(),
+            par.shape[1], ws, nx, nu, ndx, xs_ps, fs_ps, _ptr(meta),
+            _ptr(robot), _ptr(par),
+            *[_ptr(t) for t in (x0, xs, us, k, K, fs, alpha, xs_try, us_try,
+                                x_last, cost, failed)])
     trial_rollout_b1.launches += 1
-    return out
+    return xs_try, us_try, x_last, cost, failed.bool()
 
 
 _op_rollout_b1 = _custom_op("trial_rollout_b1", trial_rollout_b1_op,
@@ -752,18 +795,24 @@ _op_rollout_b1 = _custom_op("trial_rollout_b1", trial_rollout_b1_op,
 
 @_op_rollout_b1.register_fake
 def _(meta, robot, par, x0, xs, us, k, K, fs, alpha, ws, leaves, spec):
-    return _rollout_outs(x0, us.shape[0], us.shape[1])
+    lead = tuple(x0.shape[:-1])
+    T, nx, nu = us.shape[-2], x0.shape[-1], us.shape[-1]
+    return (x0.new_empty(lead + (T, nx)), x0.new_empty(lead + (T, nu)),
+            x0.new_empty(lead + (nx,)), x0.new_empty(lead),
+            x0.new_empty(lead, dtype=torch.bool))
 
 
 def trial_rollout_b1(seg, x0, xs, us, k, K, fs, alpha):
     """CUDA twin of fused_scans.trial_rollout_fused_plain, through the op
     ``torch.ops.crocoddyl_tpu_torch.trial_rollout_b1``: seg holds the T
-    running knots (no terminal knot); α a float or a 0-d tensor."""
+    running knots (no terminal knot); α a float or a 0-d tensor.  Over P
+    problems (x0 (P, nx)) seg holds their P·T knots, problem by problem,
+    and α is (P,)."""
     _on_card("trial_rollout_b1", x0)
     desc = descriptor(seg, x0.device, x0.dtype)
     return torch.ops.crocoddyl_tpu_torch.trial_rollout_b1(
         desc.meta, desc.robot, desc.par, x0, xs, us, k, K, fs,
-        as_scalar(alpha, x0), desc.ws, [], "")
+        as_scalar(alpha, x0, x0.shape[:-1]), desc.ws, [], "")
 
 
 trial_rollout_b1.launches = 0

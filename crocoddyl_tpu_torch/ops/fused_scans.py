@@ -4,7 +4,9 @@ Batch lane (kernels 2 and 3): ``riccati_backward_lanes`` and
 ``trial_rollout_lanes`` (crocoddyl_tpu/ops/fused_scans.py:350-720), problems
 on the trailing lane axis B, time on the leading axis.  b=1 lane (kernels 4
 and 5): ``riccati_backward_fused`` and ``trial_rollout_fused``
-(fused_scans.py:57-331), one problem, time on the leading axis.
+(fused_scans.py:57-331), one problem, time on the leading axis, or P
+problems on a leading problem axis (the batching rule that ``jax.vmap``
+applies to these two Pallas kernels: one program instance a problem).
 
 The functions named ``*_plain`` are the plain PyTorch versions (a loop over
 t of the JAX step functions; the b=1 ones are the lane loops at B=1 with
@@ -114,6 +116,9 @@ def _rollout_loop(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha):
     nq, nv = st.nq, st.nv
     has_ff = JointType(st.model.joint_types[0]) == JointType.FREE_FLYER
     T, B = us_l.shape[0], x0_l.shape[-1]
+    # knot t of each of the seg's K / T problems: one knot for all lanes
+    # (kernel 3), or lane p's own (kernel 5 over P problems, K = P·T)
+    K = seg.dt.shape[0]
     xnext = x0_l
     cost = torch.zeros(B, dtype=x0_l.dtype, device=x0_l.device)
     failed = torch.zeros(B, dtype=torch.bool, device=x0_l.device)
@@ -122,7 +127,7 @@ def _rollout_loop(seg, x0_l, xs_l, us_l, k_l, K_l, fs_l, alpha):
         x_try = lane_integrate(has_ff, nq, nv, xnext, (alpha - 1.0) * fs_l[t])
         dx, _ = _lane_state_diff(has_ff, nq, nv, xs_l[t], x_try)
         u_try = us_l[t] - alpha * k_l[t] - lmv(K_l[t], dx)
-        knot = lane_params(tree_map(lambda l: l[t:t + 1], seg), B)
+        knot = lane_params(tree_map(lambda l: l[t:K:T], seg), B)
         xnext, c = lane_calc_primal(knot, x_try, u_try)
         cost = cost + c
         failed = failed | ~((cost.abs() < 1e30)
@@ -167,15 +172,27 @@ def _lane(a):
     return a[..., None]
 
 
+def _lanes_of(a):
+    """(P, ...) → (..., P): a problem axis as the lane axis."""
+    return a.movedim(0, -1)
+
+
 def riccati_backward_fused_plain(derivs, dterm, fs, xreg, ureg):
     """Plain PyTorch version of the single-problem Riccati kernel.  Ports
     fused_scans.py:57-219 (the step math of :106-136): derivs leaves
     (T, ...), dterm Lx (ndx,) / Lxx (ndx, ndx), fs (T+1, ndx), xreg/ureg
     scalars.  Returns (Vx (T+1,ndx), Vxx (T+1,ndx,ndx), Qu (T,nu), k (T,nu),
     K (T,nu,ndx), Quuk (T,nu), failed () bool) — the outputs of
-    fddp._backward_pass (non-box)."""
+    fddp._backward_pass (non-box).  Over P problems every input and output
+    carries a leading problem axis (xreg/ureg (P,)): the same loop with
+    the problems as its lanes."""
     if not torch.compiler.is_compiling():
         riccati_backward_fused_plain.calls += 1
+    if fs.dim() == 3:
+        out = _riccati_loop(tree_map(_lanes_of, derivs),
+                            tree_map(_lanes_of, dterm), _lanes_of(fs),
+                            xreg, ureg)
+        return tuple(a.movedim(-1, 0).contiguous() for a in out)
 
     def reg(r):
         return torch.as_tensor(r, dtype=fs.dtype, device=fs.device).reshape(1)
@@ -190,10 +207,12 @@ riccati_backward_fused_plain.calls = 0
 def riccati_backward_fused(derivs, dterm, fs, xreg, ureg):
     """Single-problem Riccati backward pass (see the plain version for
     shapes), through the op ``riccati_backward_b1``: CUDA tensors go to
-    csrc/riccati_fused_kernel.cu."""
+    csrc/riccati_fused_kernel.cu.  Over P problems (fs (P, T+1, ndx)) one
+    launch of P CTAs."""
+    lead = fs.shape[:-2]
     return torch.ops.crocoddyl_tpu_torch.riccati_backward_b1(
-        *_ck.riccati_args(derivs, dterm, fs), _ck.as_scalar(xreg, fs),
-        _ck.as_scalar(ureg, fs))
+        *_ck.riccati_args(derivs, dterm, fs), _ck.as_scalar(xreg, fs, lead),
+        _ck.as_scalar(ureg, fs, lead))
 
 
 def trial_rollout_fused_plain(seg, x0, xs, us, k, K, fs, alpha):
@@ -202,10 +221,17 @@ def trial_rollout_fused_plain(seg, x0, xs, us, k, K, fs, alpha):
     are the T running knots; x0 (nx,); xs (T or T+1, nx) and fs (T or T+1,
     ndx), of which the first T rows are read; us/k (T, nu); K (T, nu, ndx);
     alpha a float.  Returns (xs_try (T,nx), us_try (T,nu), x_last (nx,),
-    cost (), failed () bool); the terminal node stays with the caller."""
+    cost (), failed () bool); the terminal node stays with the caller.
+    Over P problems every array carries a leading problem axis (alpha
+    (P,)) and seg holds their P·T knots, problem by problem: the same loop
+    with the problems as its lanes, each reading its own knots."""
     if not torch.compiler.is_compiling():
         trial_rollout_fused_plain.calls += 1
-    T = us.shape[0]
+    T = us.shape[-2]
+    if x0.dim() == 2:
+        out = _rollout_loop(seg, *(_lanes_of(a) for a in (
+            x0, xs[:, :T], us, k, K, fs[:, :T])), alpha)
+        return tuple(a.movedim(-1, 0).contiguous() for a in out)
     out = _rollout_loop(seg, _lane(x0), _lane(xs[:T]), _lane(us), _lane(k),
                         _lane(K), _lane(fs[:T]), alpha)
     return tuple(a[..., 0] for a in out)
@@ -217,14 +243,16 @@ trial_rollout_fused_plain.calls = 0
 def trial_rollout_fused(seg, x0, xs, us, k, K, fs, alpha):
     """One single-problem FDDP trial rollout at step length ``alpha`` (see
     the plain version for shapes); CUDA tensors go to
-    csrc/rollout_fused_kernel.cu."""
-    T = us.shape[0]
+    csrc/rollout_fused_kernel.cu.  Over P problems (x0 (P, nx), alpha
+    (P,), seg their P·T knots) one launch of P CTAs."""
+    T = us.shape[-2]
+    xs, fs = xs[..., :T, :], fs[..., :T, :]
     if x0.is_cuda:
-        return _ck.trial_rollout_b1(seg, x0, xs[:T], us, k, K, fs[:T], alpha)
+        return _ck.trial_rollout_b1(seg, x0, xs, us, k, K, fs, alpha)
     leaves, spec = flat_spec(seg)
     return torch.ops.crocoddyl_tpu_torch.trial_rollout_b1(
-        None, None, None, x0, xs[:T], us, k, K, fs[:T],
-        _ck.as_scalar(alpha, x0), 0, leaves, spec)
+        None, None, None, x0, xs, us, k, K, fs,
+        _ck.as_scalar(alpha, x0, x0.shape[:-1]), 0, leaves, spec)
 
 
 def supports_problem(problem, settings) -> bool:

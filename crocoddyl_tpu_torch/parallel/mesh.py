@@ -18,7 +18,9 @@ caller's device (the single-process case).
 * :func:`data_mesh` describes it; :func:`host_local_batch`,
   :func:`shard_batch` and :func:`replicate` place a rank's slice;
 * :func:`sharded_solve_x0` and :func:`batched_solve_fn` solve a rank's
-  slice; :func:`gather` brings the whole batch to every rank;
+  slice as one batched solve (``fddp.vmap_solve``: ``solve_fn`` called
+  once a rank, on its whole slice); :func:`gather` brings the whole batch
+  to every rank;
 * :func:`fleet_metrics` reduces a batched Solution over the global batch
   with collectives (sums and counts, then ``all_reduce``);
 * :func:`spawn` starts ranks on one host, and :func:`dryrun_multichip`
@@ -204,11 +206,6 @@ def _tensors(tree):
     return out
 
 
-def _stack(items):
-    """One tree whose tensors stack the items' along a new leading axis."""
-    return _map(lambda *xs: torch.stack(xs), *items)
-
-
 def _local_problems(mesh, n, what):
     if n == 0:
         raise ValueError(f"{what}: rank {mesh.rank} of {mesh.size} has no "
@@ -220,31 +217,37 @@ def sharded_solve_x0(solve_fn: Callable, problem, mesh: DataMesh,
     """One problem replicated, a batch of initial states sharded.  Returns
     ``run(x0s)``: from the global ``(B, nx)`` initial states, this rank's
     slice solved on its device, as one Solution with a leading batch axis.
-    ``solve_fn(problem)`` is called once per problem of the slice (the JAX
-    version ``vmap``s it); with ``batched=True``, ``solve_fn(problem,
-    x0s)`` takes the whole slice at once (``solve_batch``)."""
+    ``solve_fn(problem)`` is called once, under ``vmap_solve``, on the
+    problem batched over the slice's initial states (the JAX version
+    ``vmap``s it); with ``batched=True``, ``solve_fn(problem, x0s)`` takes
+    the whole slice at once (``solve_batch``)."""
+    from ..core.solvers.fddp import vmap_solve
     problem = replicate(problem, mesh)
 
     def run(x0s):
         x0s = shard_batch(x0s, mesh)
-        _local_problems(mesh, x0s.shape[0], "sharded_solve_x0")
+        n = x0s.shape[0]
+        _local_problems(mesh, n, "sharded_solve_x0")
         if batched:
             return solve_fn(problem, x0s)
-        return _stack([solve_fn(problem.replace(x0=x0)) for x0 in x0s])
+        problems = tree_map(lambda l: l.expand((n,) + l.shape),
+                            problem).replace(x0=x0s)
+        return vmap_solve(solve_fn)(problems)
 
     return run
 
 
 def batched_solve_fn(solve_fn: Callable, mesh: DataMesh):
     """``run(problems)`` over a problem whose every leaf carries a leading
-    batch axis: this rank solves its elements, one ``solve_fn(problem)``
-    each, and returns their results stacked along a leading axis."""
+    batch axis: this rank solves its slice as one batch, one call of
+    ``solve_fn`` under ``vmap_solve``, and returns its results with the
+    leading axis."""
+    from ..core.solvers.fddp import vmap_solve
+
     def run(problems):
-        start, n = _slice(_batch_size(problems), mesh.size, mesh.rank)
-        _local_problems(mesh, n, "batched_solve_fn")
-        problems = replicate(problems, mesh)
-        return _stack([solve_fn(tree_map(lambda l: l[i], problems))
-                       for i in range(start, start + n)])
+        _local_problems(mesh, _slice(_batch_size(problems), mesh.size,
+                                     mesh.rank)[1], "batched_solve_fn")
+        return vmap_solve(solve_fn)(shard_batch(problems, mesh))
 
     return run
 

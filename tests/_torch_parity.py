@@ -202,6 +202,7 @@ SOLVE_JOBS = {"solve_batch": (1,), "solve": (1, 20)}
 _R = "tests.test_torch_"
 REFERENCE_JOBS = (
     f"{_R}segments:jax_reference:solve",
+    f"{_R}vmap_solve:jax_reference:walks",
     f"{_R}segments:jax_reference:walk",
     f"{_R}model_zoo:jax_reference:cop",
     f"{_R}model_zoo:jax_reference:rh5",
@@ -246,16 +247,36 @@ def _shared_dir():
     return path
 
 
+# the modules whose tests read each SOLVE_JOBS entry (``solve_pair``)
+SOLVE_USERS = {"solve_batch": ("test_torch_fddp_batch",),
+               "solve": ("test_torch_solve", "test_torch_solver_surface")}
+
+
+def session_jobs(modules):
+    """(SOLVE_JOBS entries, REFERENCE_JOBS) that the tests of ``modules``
+    (module names, ``test_torch_*``) read."""
+    modules = set(modules)
+    return ([e for e in SOLVE_JOBS if modules & set(SOLVE_USERS[e])],
+            [j for j in REFERENCE_JOBS
+             if j.split(":")[0].split(".")[-1] in modules])
+
+
 @pytest.fixture(scope="session")
-def solve_cache(tmp_path_factory):
+def solve_cache(tmp_path_factory, request):
     """The directory where ``solve_pair`` keeps its solutions: under
     pytest-xdist the session's shared directory (``_shared_dir``); else
-    the session's own temporary directory."""
+    the session's own temporary directory, where the references that the
+    session's collected tests read start computing at once
+    (``_prefetch``), beside the tests, the first time a test asks for
+    this directory."""
     shared = _shared_dir()
     if shared:
         return shared
     path = tmp_path_factory.getbasetemp() / "torch_solve_pairs"
     path.mkdir(exist_ok=True)
+    _prefetch(str(path), session_jobs(
+        os.path.splitext(os.path.basename(str(item.fspath)))[0]
+        for item in request.session.items))
     return str(path)
 
 
@@ -340,10 +361,11 @@ def _wait_lock(path, what):
             time.sleep(0.5)
 
 
-def _prefetch(cache_dir):
+def _prefetch(cache_dir, jobs=None):
     """In the session's first worker to import this module (the holder of
     ``prefetch.lock`` for the life of its process), compute every JAX
-    reference of the port's tests, SOLVE_JOBS and then REFERENCE_JOBS, in
+    reference of the port's tests (or, with ``jobs``, the SOLVE_JOBS
+    entries and REFERENCE_JOBS given), SOLVE_JOBS and then REFERENCE_JOBS, in
     PREFETCH_SLOTS threads, each child niced by PREFETCH_NICE, from the
     session's start: the references are ready when the port's tests, which
     come late in the session, need them, and no worker waits for a child
@@ -362,10 +384,11 @@ def _prefetch(cache_dir):
         leader.close()
         return
     _PREFETCH.append(leader)        # held until this process ends
+    solves, refs = jobs or (SOLVE_JOBS, REFERENCE_JOBS)
     jobs = [(_SOLVE_CHILD, [e], os.path.join(cache_dir, f"{e}.npz"))
-            for e in SOLVE_JOBS]
+            for e in solves]
     jobs += [(_REF_CHILD, j.split(":"), _ref_path(j, cache_dir))
-             for j in REFERENCE_JOBS]
+             for j in refs]
     pending = threading.Lock()
 
     def run():

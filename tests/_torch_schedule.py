@@ -83,13 +83,18 @@ SLOW = ("tests/test_rh5.py::test_zmp_and_cop_analysis",
 
 # the port's tests that take 10 s or more once their JAX references are
 # in: the exports of whole solves (the walk's replans and batch step, the
-# unicycle's solve, the solves over nodes outside kernel 1), longest
-# first; they head the port's tests, so that none starts near the end
+# unicycle's solve, the solves over nodes outside kernel 1) and the
+# batched solves held to their single solves, longest first; they head
+# the port's tests, so that none starts near the end
 _S = "tests/test_torch_solve.py::test_export_walk_round_trip"
 _K = "tests/test_torch_aot.py::test_export_solve_round_trip_node_kinds"
-PORT_FIRST = (f"{_S}[solve_batch]", f"{_S}[fused_scans]",
+_V = "tests/test_torch_vmap_solve.py::test_walk_gains_match_single_solves"
+PORT_FIRST = (f"{_V}[sequential_trace]", f"{_V}[fused_scans]",
+              f"{_S}[solve_batch]", f"{_S}[fused_scans]",
               "tests/test_torch_aot.py::test_export_solve_round_trip",
+              f"{_V}[default]", f"{_V}[box_fddp]", f"{_V}[ddp]",
               f"{_S}[default]", f"{_K}[impulse_walk]",
+              "tests/test_torch_vmap_solve.py::test_segmented_batch",
               f"{_K}[generic_running]", f"{_K}[generic_terminal]")
 
 

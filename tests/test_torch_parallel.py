@@ -85,12 +85,15 @@ def _references(solve_cache):
 
 
 def _one_process(x0s):
-    """The unsharded solves, in this process: the 16 unicycles stacked, and
-    the reduced walk's B=4 solve and its two B=2 halves."""
-    from crocoddyl_tpu_torch.parallel.mesh import _stack
+    """The unsharded solves, in this process: the 16 unicycles as one
+    batched solve (``vmap_solve``, as tests/test_mesh.py:49-50 ``vmap``s
+    them), and the reduced walk's B=4 solve and its two B=2 halves."""
+    from crocoddyl_tpu_torch import vmap_solve
+    from crocoddyl_tpu_torch.utils.struct import tree_map
     prob = fleet.unicycle_problem()
-    uni = _stack([fleet.unicycle_solve(prob.replace(x0=x0))
-                  for x0 in torch.as_tensor(x0s)])
+    x0s = torch.as_tensor(x0s)
+    uni = vmap_solve(fleet.unicycle_solve)(tree_map(
+        lambda l: l.expand((len(x0s),) + l.shape), prob).replace(x0=x0s))
     wprob, xs0, us0, wx0s = fleet.walk()
     half = fleet.B_WALK // 2
     walks = [fleet.walk_solve(wprob, xs, xs0, us0)
